@@ -9,13 +9,18 @@ Hopper card (sm_90a) and the CUDA toolkit:
 Phases; the run fails at the first that fails:
   1. build    compiles every CUDA kernel of the port (csrc/*.cu) into
               corenet_tpu_torch/_build/.
-  2. kernels  calls each kernel's wrapper at the shapes both serving paths
-              give it (h7: batch 4 at 128³; y1: 64 offsets × batch 4 as
-              one batch of 256 at 32³), with the indices those paths
-              compute, holds the result against the plain PyTorch version
-              (torch.equal), and times kernel, plain version and one
-              PyTorch library call of the same gather: device time from
-              CUDA events around CUDA-graph replays.
+  2. kernels  calls each kernel's wrapper at the shapes its paths give
+              it, holds the result against the plain PyTorch version, and
+              times kernel, plain version and, where there is one, one
+              PyTorch library call of the same function: device time from
+              CUDA events around CUDA-graph replays. The skip gather at both
+              serving paths' shapes (h7: batch 4 at 128³; y1: 64 offsets ×
+              batch 4 as one batch of 256 at 32³) with the indices those
+              paths compute (torch.equal); its backward at h7 training's
+              (the h7 indices, batch 4), f32 and bf16, against the float64
+              scatter-add within 1e-5 · Σ|dout| per cell (plus one bf16
+              ulp); fgbg_sums at [4, 128³] with int32, uint8 and float32
+              labels, within 1e-6 relative.
   3. serving  h7: 128³ output, 2 classes, batch 4, 256² images, random
               weights from a seed, through super_resolution_from_model.
               Checks the PMF (shape, finite, sums to 1), that each forward
@@ -29,6 +34,16 @@ Phases; the run fails at the first that fails:
               same PMF, launch, plain-skip and timing checks, the batched
               passes against the 64 sequential ones, and the card's logits
               against the port's CPU logits on a small input.
+  5. train    h7 training: 128³, 2 classes, batch 4, 256² images, the
+              serving camera, a ground-truth grid of seeded ellipsoids made
+              on the card, Adam (lr 4e-4, eps 1e-4), through
+              create_train_state and make_train_step. Checks that each step
+              launched the skip gather 4 times, its backward 4 times and
+              fgbg_sums once, that loss and gradients are finite, that the
+              loss falls over 10 steps on the batch, and that one step with
+              the kernels matches the same step with the plain versions.
+              Times 20 steps one by one and profiles one more. Then one
+              step at 32³ on the card against the same step on the CPU.
 
 Float32 throughout: TF32 is switched off for convolutions and matmuls, so
 the float32 path computes in float32 on the card as on the CPU.
@@ -42,7 +57,10 @@ Without a CUDA device it prints no result and exits with status 1.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -54,6 +72,9 @@ IMAGE_HW = 256
 OUTPUT_RES = (128, 128, 128)
 Y1_NATIVE = (32, 32, 32)
 SERVE_RUNS = 30
+TRAIN_RUNS = 20
+LOSS_STEPS = 10
+TRAIN_SMALL = (32, 32, 32)  # the card-against-CPU step
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # The decoder's skips: stage → (native resolution / layer resolution,
 # padded map H2 = W2 at 256² images, channels).
@@ -158,16 +179,16 @@ def device_profile(torch, forward):
           "top": [(n, t / 1e3) for n, t in top]}
 
 
-def log_profile(label, profile, wall_ms):
-  """The profiled forward's device busy time against `wall_ms`, the
-  median unprofiled forward: the profiler slows the host, so the idle
-  share is taken against the unprofiled time."""
+def log_profile(label, profile, wall_ms, what="forward"):
+  """The profiled forward's (or step's) device busy time against
+  `wall_ms`, the median unprofiled one: the profiler slows the host, so
+  the idle share is taken against the unprofiled time."""
   if profile is None:
     log(f"{label} device profile: not measured (the trace holds no device "
         "events)")
     return
   busy = profile["busy_ms"]
-  log(f"{label} device profile, one forward: device busy {busy:.3f} ms, "
+  log(f"{label} device profile, one {what}: device busy {busy:.3f} ms, "
       f"idle share {1 - busy / wall_ms:.3f} of the unprofiled "
       f"{wall_ms:.3f} ms (wall under the profiler {profile['wall_ms']:.3f} "
       f"ms), {profile['device_events']} device events; most device time:")
@@ -227,7 +248,7 @@ def serve(torch, op, label, infer, args, shape):
   return launches, ms
 
 
-def check_plain_skips(torch, op, label, model, infer, args):
+def check_plain_skips(torch, op, fgbg, label, model, infer, args):
   """The path's logits (the decoder's output, caught by a hook) with the
   kernel and with the plain skips: bit-identical, since the gather is a
   copy. cuDNN is held to deterministic algorithms for both so that no
@@ -236,13 +257,11 @@ def check_plain_skips(torch, op, label, model, infer, args):
   hook = model.decoder.register_forward_hook(
       lambda module, inputs, out: logits.append(out))
   torch.backends.cudnn.deterministic = True
-  saved = op.skip_gather
   try:
     infer(*args)
-    op.skip_gather = op.skip_gather_reference
-    infer(*args)
+    with plain_versions(op, fgbg):
+      infer(*args)
   finally:
-    op.skip_gather = saved
     torch.backends.cudnn.deterministic = False
     hook.remove()
   if len(logits) != 2:
@@ -254,6 +273,336 @@ def check_plain_skips(torch, op, label, model, infer, args):
                          f"plain skips by {diff}")
   log(f"{label} logits {list(kernel.shape)} with the kernel equal those with "
       f"the plain skips (max |logit| {float(kernel.abs().max()):.4f})")
+
+
+def bf16_ulp(torch, x):
+  """The spacing of bfloat16 numbers at |x| (its smallest normal's at 0)."""
+  mag = x.abs().to(torch.bfloat16).double().clamp(min=2.0 ** -126)
+  return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def skip_backward_rows(torch, op, v2s, sample, res, gen):
+  """skip_gather's backward at h7 training's shapes (batch 4, the four
+  skips, the path's own indices), f32 and bf16: the kernel and the plain
+  version against the float64 scatter-add, and their times. Also times
+  the kernel with the voxels that land on the pad ring moved one pixel
+  inwards, which shows what the ring's hot cells cost."""
+  from corenet_tpu_torch.models import skip
+  dev = v2s.device
+  b = v2s.shape[0]
+  bidx = torch.arange(b, device=dev)[:, None]
+  rows = []
+  for stage, (div, h2, c) in SKIPS.items():
+    layer = res // div
+    matrix = v2s * torch.tensor([div, div, div, 1.0], device=dev)
+    px, py = skip.voxel_pixel_indices(matrix, sample, (layer,) * 3,
+                                      h2 - 2, h2 - 2)
+    n = px.shape[1]
+    on_pad = (px == 0) | (px == h2 - 1) | (py == 0) | (py == h2 - 1)
+    inner_px = px.clamp(1, h2 - 2).contiguous()
+    inner_py = py.clamp(1, h2 - 2).contiguous()
+    flat = (bidx * h2 * h2 + py.long() * h2 + px.long()).reshape(-1)
+    per_pixel = torch.bincount(flat, minlength=b * h2 * h2)
+    for dtype in (torch.float32, torch.bfloat16):
+      dout = torch.randn((b, n, c), generator=gen).to(dev, dtype)
+      got = op.skip_gather_backward(dout, px, py, h2, h2)
+      plain = op.skip_gather_backward_reference(dout, px, py, h2, h2)
+      ref64 = op.skip_gather_backward_reference(dout.double(), px, py, h2, h2)
+      mass = op.skip_gather_backward_reference(dout.double().abs(), px, py,
+                                               h2, h2)
+      torch.cuda.synchronize()
+      bound = 1e-5 * mass + 1e-30
+      if dtype == torch.bfloat16:
+        bound = bound + bf16_ulp(torch, ref64)
+      for what, out in (("kernel", got), ("plain version", plain)):
+        excess = float(((out.double() - ref64).abs() - bound).max())
+        if excess > 0:
+          raise AssertionError(f"skip_gather backward ({what}) exceeds its "
+                               f"bound by {excess} at stage {stage} {dtype}")
+      es = dout.element_size()
+      nbytes = b * n * (c * es + 8) + b * h2 * h2 * c * es
+      dout2d = dout.reshape(b * n, c)
+      row = {
+          "stage": stage, "dtype": str(dtype).replace("torch.", ""),
+          "dfmap": [b, h2, h2, c], "n": n, "bytes": nbytes,
+          "voxels_on_pad_share": float(on_pad.float().mean()),
+          "max_voxels_per_pixel": int(per_pixel.max()),
+          "max_abs_err_vs_plain": float((got.float() - plain.float())
+                                        .abs().max()),
+          "ms": device_ms(torch, lambda: op.skip_gather_backward(
+              dout, px, py, h2, h2)),
+          "ms_pad_moved_inwards": device_ms(
+              torch, lambda: op.skip_gather_backward(
+                  dout, inner_px, inner_py, h2, h2)),
+          "plain_ms": device_ms(
+              torch, lambda: op.skip_gather_backward_reference(
+                  dout, px, py, h2, h2)),
+          # One PyTorch call of the same function: index_add_ into a zeroed
+          # f32 buffer (float32 only; bf16 would accumulate in bf16).
+          "library_ms": device_ms(
+              torch, lambda: torch.zeros(
+                  (b * h2 * h2, c), device=dev).index_add_(0, flat, dout2d))
+          if dtype == torch.float32 else None,
+          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+      }
+      rows.append(row)
+      lib = ("none" if row["library_ms"] is None
+             else f"{row['library_ms']:.4f} ms")
+      log(f"skip_gather backward stage {stage} {row['dtype']:8s} "
+          f"[{b},{h2},{h2},{c}] N={n}: kernel {row['ms']:.4f} ms (pad "
+          f"voxels moved inwards {row['ms_pad_moved_inwards']:.4f}), plain "
+          f"{row['plain_ms']:.4f} ms, library {lib}, bound "
+          f"{row['bound_ms']:.4f} ms ({nbytes} B); voxels on the pad "
+          f"{row['voxels_on_pad_share']:.4f}, max voxels per pixel "
+          f"{row['max_voxels_per_pixel']}")
+  return rows
+
+
+def fgbg_rows(torch, fgbg, dev, gen):
+  """fgbg_sums at [4, 128³] with f32 diff and int32, uint8 and float32
+  labels, against the plain version within 1e-6 relative."""
+  n = OUTPUT_RES[0] * OUTPUT_RES[1] * OUTPUT_RES[2]
+  diff = (torch.randn((BATCH, n), generator=gen) * 3).to(dev)
+  labels = (torch.rand((BATCH, n), generator=gen) < 0.3).to(dev)
+  rows = []
+  for gt_dtype in (torch.int32, torch.uint8, torch.float32):
+    gt = labels.to(gt_dtype)
+    inter, union = fgbg.fgbg_sums(diff, gt)
+    ref = fgbg.fgbg_sums_reference(diff, gt)
+    again = fgbg.fgbg_sums(diff, gt)
+    torch.cuda.synchronize()
+    err = max(float(((got - want) / want).abs().max())
+              for got, want in zip((inter, union), ref))
+    if err > 1e-6:
+      raise AssertionError(f"fgbg_sums differs from its plain version by "
+                           f"{err} relative ({gt_dtype} labels)")
+    if not (torch.equal(again[0], inter) and torch.equal(again[1], union)):
+      raise AssertionError("fgbg_sums gave other sums on the same inputs")
+    nbytes = diff.numel() * 4 + gt.numel() * gt.element_size() + BATCH * 8
+    row = {
+        "gt_dtype": str(gt_dtype).replace("torch.", ""),
+        "diff": [BATCH, n], "bytes": nbytes, "max_rel_err": err,
+        "max_abs_err": max(float((got - want).abs().max())
+                           for got, want in zip((inter, union), ref)),
+        "ms": device_ms(torch, lambda: fgbg.fgbg_sums(diff, gt)),
+        "plain_ms": device_ms(
+            torch, lambda: fgbg.fgbg_sums_reference(diff, gt)),
+        "library_ms": None,  # no single PyTorch call computes both sums
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
+    rows.append(row)
+    log(f"fgbg_sums [{BATCH},{n}] f32 diff, {row['gt_dtype']} labels: kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library none, "
+        f"bound {row['bound_ms']:.4f} ms ({nbytes} B); max relative error "
+        f"{err:.2e}")
+  return rows
+
+
+@contextlib.contextmanager
+def plain_versions(op, fgbg):
+  """Swaps the kernels of the skip gather (both directions) and of
+  fgbg_sums for their plain versions."""
+  saved = (op.skip_gather_forward, op.skip_gather_backward,
+           fgbg.fgbg_sums_forward)
+  op.skip_gather_forward = op.skip_gather_reference
+  op.skip_gather_backward = op.skip_gather_backward_reference
+  fgbg.fgbg_sums_forward = fgbg.fgbg_sums_reference
+  try:
+    yield
+  finally:
+    (op.skip_gather_forward, op.skip_gather_backward,
+     fgbg.fgbg_sums_forward) = saved
+
+
+def ellipsoid_grid(torch, dev, res, batch, offsets, seed):
+  """int32[B, D, H, W] ground truth made on the card: per scene one or two
+  ellipsoids inside the voxel box, tested at the voxel centres + the
+  grid offset."""
+  gen = torch.Generator().manual_seed(seed)
+  d, h, w = res
+  z = torch.arange(d, device=dev, dtype=torch.float32).view(d, 1, 1)
+  y = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1)
+  x = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w)
+  size = torch.tensor([w, h, d], dtype=torch.float32)
+  grid = torch.zeros((batch,) + tuple(res), dtype=torch.int32, device=dev)
+  for i in range(batch):
+    for _ in range(1 + i % 2):
+      centre = ((0.3 + 0.4 * torch.rand(3, generator=gen)) * size).tolist()
+      radius = ((0.2 + 0.15 * torch.rand(3, generator=gen)) * size).tolist()
+      o = offsets[i].tolist()
+      inside = (((x + o[0] - centre[0]) / radius[0]) ** 2
+                + ((y + o[1] - centre[1]) / radius[1]) ** 2
+                + ((z + o[2] - centre[2]) / radius[2]) ** 2) <= 1.0
+      grid[i] |= inside.int()
+  return grid
+
+
+def feeds_batch_renorm(name):
+  """Conv biases whose output a BatchRenorm normalizes: its mean
+  subtraction cancels them, so their true gradient is 0."""
+  return name.endswith(".bias") and (
+      (name.startswith("encoder.") and "conv" in name.split(".")[-2])
+      or re.fullmatch(r"decoder\.stage_\d_c\.bias", name) is not None)
+
+
+def compare_with_plain_step(torch, op, fgbg, state, step, batch):
+  """One step with the kernels and the same step, from the same state,
+  with the plain versions: loss within 1e-6 relative and every gradient
+  that carries mass within 1e-4 relative L2. cuDNN is held to
+  deterministic algorithms, so the forward is the same bit for bit and
+  only the order of summation differs. The state is restored after."""
+  model, optimizer = state.model, state.optimizer
+  snap_model = {k: v.clone() for k, v in model.state_dict().items()}
+  snap_opt = copy.deepcopy(optimizer.state_dict())
+  results = []
+  torch.backends.cudnn.deterministic = True
+  try:
+    for plain in (False, True):
+      model.load_state_dict(snap_model)
+      optimizer.load_state_dict(snap_opt)
+      counts = (op.launch_count, op.backward_launch_count, fgbg.launch_count)
+      with plain_versions(op, fgbg) if plain else contextlib.nullcontext():
+        _, metrics = step(state, batch)
+      torch.cuda.synchronize()
+      launched = (op.launch_count, op.backward_launch_count,
+                  fgbg.launch_count) != counts
+      if launched == plain:
+        raise AssertionError(f"the {'plain' if plain else 'kernel'} step "
+                             f"{'launched' if plain else 'skipped'} kernels")
+      results.append((float(metrics["loss"]),
+                      {n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()}))
+  finally:
+    torch.backends.cudnn.deterministic = False
+    model.load_state_dict(snap_model)
+    optimizer.load_state_dict(snap_opt)
+  (loss_k, grads_k), (loss_p, grads_p) = results
+  loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+  if loss_rel > 1e-6:
+    raise AssertionError(f"kernel step loss {loss_k} and plain step loss "
+                         f"{loss_p} differ by {loss_rel} relative")
+  worst, worst_name, checked = 0.0, None, 0
+  for name, gp in grads_p.items():
+    if feeds_batch_renorm(name):
+      continue
+    rel = float((grads_k[name] - gp).norm() / gp.norm())
+    checked += 1
+    if not math.isfinite(rel) or rel > worst:
+      worst, worst_name = rel, name
+  if not worst <= 1e-4:
+    raise AssertionError(f"gradient {worst_name} of the kernel step differs "
+                         f"from the plain step's by {worst} relative L2")
+  log(f"h7 train: the step with the kernels matches the step with the plain "
+      f"versions: loss {loss_k:.7f} vs {loss_p:.7f} ({loss_rel:.2e} "
+      f"relative), worst of {checked} gradients {worst:.2e} relative L2 "
+      f"({worst_name})")
+  return loss_rel, worst
+
+
+def train_h7(torch, op, fgbg, CoreNet, config, image, camera, v2x, offsets,
+             dev):
+  """Phase 5: the h7 training step. Returns the launches of the first
+  step (forward, backward, fgbg) and the median step time in ms."""
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 20)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES)
+  grid = ellipsoid_grid(torch, dev, OUTPUT_RES, BATCH, offsets, SEED + 21)
+  batch = {"image": image.to(dev), "camera": camera.to(dev),
+           "v2x": v2x.to(dev), "grid": grid, "grid_offset": offsets.to(dev)}
+  log(f"h7 train: grid int32 {list(grid.shape)} of seeded ellipsoids, "
+      f"foreground share {float(grid.float().mean()):.4f}")
+
+  torch.cuda.synchronize()
+  op.launch_count = op.backward_launch_count = fgbg.launch_count = 0
+  start = time.perf_counter()
+  state, metrics = step(state, batch)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - start
+  launches = (op.launch_count, op.backward_launch_count, fgbg.launch_count)
+  if launches != (4, 4, 1):
+    raise AssertionError(f"h7 train step launched (skip_gather, its "
+                         f"backward, fgbg_sums) {launches} times, expected "
+                         "(4, 4, 1)")
+  first_loss = float(metrics["loss"])
+  bad = [n for n, p in state.model.named_parameters()
+         if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+  if not math.isfinite(first_loss) or bad:
+    raise AssertionError(f"h7 train: loss {first_loss}, non-finite or "
+                         f"missing gradients {bad[:5]}")
+  if state.global_step != BATCH:
+    raise AssertionError(f"global_step {state.global_step} after one step")
+  log(f"h7 train: first step {first_s:.3f} s, loss {first_loss:.6f}, "
+      f"launches (skip_gather, backward, fgbg_sums) {launches}, loss and "
+      "all gradients finite")
+
+  compare_with_plain_step(torch, op, fgbg, state, step, batch)
+
+  losses = []
+  for _ in range(LOSS_STEPS):
+    state, metrics = step(state, batch)
+    losses.append(float(metrics["loss"]))
+  if not losses[-1] < first_loss:
+    raise AssertionError(f"h7 train: loss did not fall over {LOSS_STEPS} "
+                         f"steps: {first_loss} then {losses}")
+  log(f"h7 train: loss {first_loss:.6f} at step 1, then " +
+      ", ".join(f"{v:.6f}" for v in losses))
+
+  torch.cuda.reset_peak_memory_stats()
+  times = []
+  for _ in range(TRAIN_RUNS):
+    start = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+  mem = torch.cuda.max_memory_allocated()
+  ms = statistics.median(times)
+  holder = [state]
+
+  def one_step():
+    holder[0], _ = step(holder[0], batch)
+
+  log_profile("h7 train", device_profile(torch, one_step), ms, what="step")
+  log(f"h7 train: over {TRAIN_RUNS} steps median {ms:.3f} ms (min "
+      f"{min(times):.3f}, max {max(times):.3f}) per batch of {BATCH} = "
+      f"{BATCH * 1e3 / ms:.2f} training scenes/s; first step {first_s:.3f} "
+      f"s; peak memory {mem / 2**30:.2f} GiB")
+  return launches, ms
+
+
+def train_card_against_cpu(torch, CoreNet, CoreNetConfig, DecoderConfig,
+                           image, camera, offsets, dev):
+  """One step at 32³, batch 2, 64² images on the card against the same
+  step on the CPU (the path tests/test_torch_train_step.py holds against
+  JAX): loss within 1e-4 relative."""
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  config = CoreNetConfig(DecoderConfig(TRAIN_SMALL, 2))
+  _, weights = seeded_model(torch, CoreNet, config, SEED + 30)
+  res = TRAIN_SMALL[0]
+  batch = {"image": image[:2, :64, :64].contiguous(),
+           "camera": camera[:2],
+           "v2x": torch.diag(torch.tensor([float(res)] * 3 + [1.0])).expand(
+               2, 4, 4).contiguous(),
+           "grid": ellipsoid_grid(torch, "cpu", TRAIN_SMALL, 2, offsets[:2],
+                                  SEED + 31),
+           "grid_offset": offsets[:2]}
+  result = {}
+  for where in ("cpu", dev):
+    model = CoreNet(config)
+    model.load_state_dict(weights)
+    state = create_train_state(model, device=where)
+    step = make_train_step(state.model, state.optimizer, "FG_BG",
+                           TRAIN_SMALL)
+    _, metrics = step(state, {k: v.to(where) for k, v in batch.items()})
+    result[str(where)] = float(metrics["loss"])
+  cpu, card = result["cpu"], result[str(dev)]
+  rel = abs(card - cpu) / abs(cpu)
+  if rel > 1e-4:
+    raise AssertionError(f"32³ train step: card loss {card}, CPU loss {cpu}")
+  log(f"32³ train step: card loss {card:.7f} matches the CPU's {cpu:.7f} "
+      f"({rel:.2e} relative; tolerance 1e-4)")
 
 
 def main() -> int:
@@ -268,6 +617,7 @@ def main() -> int:
   from corenet_tpu_torch.models import skip
   from corenet_tpu_torch.models.corenet import (
       CoreNet, CoreNetConfig, DecoderConfig)
+  from corenet_tpu_torch.ops import fgbg_loss as fgbg
   from corenet_tpu_torch.ops import skip_gather as op
   from corenet_tpu_torch.train.step import compute_v2s
 
@@ -284,9 +634,9 @@ def main() -> int:
 
   # 1. Build.
   start = time.perf_counter()
-  for name in kernels.SOURCES:
-    kernels.build(name)
-  log(f"build: {len(kernels.SOURCES)} kernel source(s) in "
+  kernels.build_all()
+  names = ", ".join(kernels.SOURCES)
+  log(f"build: {len(kernels.SOURCES)} kernel sources ({names}) in "
       f"{time.perf_counter() - start:.1f} s")
 
   camera, v2x = camera_and_v2x(torch, OUTPUT_RES[0])
@@ -352,6 +702,9 @@ def main() -> int:
             f"[{b},{h2},{h2},{c}] N={n}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({nbytes} B)")
+  # h7 training runs the serving camera at batch 4: the h7 indices.
+  bwd_rows = skip_backward_rows(torch, op, *paths["h7"], gen)
+  loss_rows = fgbg_rows(torch, fgbg, dev, gen)
   del fmap, out, ref, lib, paths
   per_forward = {
       path: {key: sum(row[key] for row in shapes
@@ -368,7 +721,7 @@ def main() -> int:
   infer = super_resolution_from_model(h7, h7_state, OUTPUT_RES, device="cuda")
   main_launches, h7_ms = serve(torch, op, "h7", infer, args,
                                (BATCH,) + OUTPUT_RES + (2,))
-  check_plain_skips(torch, op, "h7", h7, infer, args)
+  check_plain_skips(torch, op, fgbg, "h7", h7, infer, args)
   del h7, infer
   torch.cuda.empty_cache()
 
@@ -378,7 +731,7 @@ def main() -> int:
   infer = super_resolution_from_model(y1, y1_state, Y1_NATIVE, device="cuda")
   _, y1_ms = serve(torch, op, "y1", infer, args,
                      (BATCH,) + OUTPUT_RES + (2,))
-  check_plain_skips(torch, op, "y1", y1, infer, args)
+  check_plain_skips(torch, op, fgbg, "y1", y1, infer, args)
   pmf = infer(*args)
 
   sequential = super_resolution_from_model(y1, y1_state, Y1_NATIVE,
@@ -419,6 +772,16 @@ def main() -> int:
                          f"(max |logit| {scale})")
   log(f"y1 logits on the card match the CPU within {cpu_diff:.2e} "
       f"(max |logit| {scale:.4f}; tolerance 2e-3 relative)")
+  del y1, y1_state, cpu_model, ref, got
+  torch.cuda.empty_cache()
+
+  # 5. Training, h7, then a small step on the card against the CPU.
+  train_launches, train_ms = train_h7(
+      torch, op, fgbg, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)),
+      image, camera, v2x, offsets, dev)
+  torch.cuda.empty_cache()
+  train_card_against_cpu(torch, CoreNet, CoreNetConfig, DecoderConfig,
+                         image, camera, offsets, dev)
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -440,10 +803,46 @@ def main() -> int:
       "per_forward_float32": per_forward,
       "shapes": shapes,
   }
+  bwd_f32 = [row for row in bwd_rows if row["dtype"] == "float32"]
+  bwd_entry = {
+      "name": "skip_gather_bwd",
+      "route": "cuda",
+      "source": "corenet_tpu_torch/csrc/skip_gather.cu",
+      "replaces": "corenet_tpu/ops/skip_gather.py:139",
+      "launches": train_launches[1],
+      "max_abs_err": max(row["max_abs_err_vs_plain"] for row in bwd_rows),
+      # Per h7 training step in float32: the sum over its four skips.
+      **{key: sum(row[key] for row in bwd_f32)
+         for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+      "bound_by": "bytes",
+      "library_call": "torch.zeros(...).index_add_(0, flat_index, dout)",
+      "timing": entry["timing"],
+      "ms_pad_moved_inwards": sum(row["ms_pad_moved_inwards"]
+                                  for row in bwd_f32),
+      "shapes": bwd_rows,
+  }
+  int32_row = loss_rows[0]
+  fgbg_entry = {
+      "name": "fgbg_sums",
+      "route": "cuda",
+      "source": "corenet_tpu_torch/csrc/fgbg_sums.cu",
+      "replaces": "corenet_tpu/ops/fgbg_loss.py:62",
+      "launches": train_launches[2],
+      "max_abs_err": max(row["max_abs_err"] for row in loss_rows),
+      # The h7 training step's call: f32 diff, int32 labels.
+      **{key: int32_row[key]
+         for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+      "bound_by": "bytes",
+      "library_call": None,
+      "timing": entry["timing"],
+      "shapes": loss_rows,
+  }
   log(f"h7 scenes/s {BATCH * 1e3 / h7_ms:.3f}; y1 scenes/s "
-      f"{BATCH * 1e3 / y1_ms:.3f} (median of {SERVE_RUNS} forwards)")
+      f"{BATCH * 1e3 / y1_ms:.3f} (median of {SERVE_RUNS} forwards); h7 "
+      f"training scenes/s {BATCH * 1e3 / train_ms:.3f} (median of "
+      f"{TRAIN_RUNS} steps)")
   log(smi)
-  log(json.dumps({"kernels": [entry]}))
+  log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry]}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,
       "count": torch.cuda.device_count()}}))

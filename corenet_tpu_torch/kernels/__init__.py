@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers, so a
 build takes seconds) and is compiled by `nvcc` for Hopper (`sm_90a`) into
-its own shared library, loaded with `ctypes`. Builds happen at first use,
+its own shared library, loaded with `ctypes`. `build_all` starts one
+`nvcc` per source, all at once. Builds happen at first use,
 into `_build/` inside this package (listed in `.gitignore`). A library's
 file name carries a hash of its source and flags, so an edited source is
 rebuilt, and a build is written to a temporary name and renamed, so
@@ -27,7 +28,7 @@ from typing import Dict, Sequence, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("skip_gather",)
+SOURCES = ("skip_gather", "fgbg_sums")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -65,20 +66,37 @@ def nvcc_command(name: str, output: Path) -> list:
 def build(name: str) -> Path:
   """Compiles `csrc/<name>.cu` unless it is built already; returns the
   library's path. Raises with the compiler's output on a failed build."""
-  target = library_path(name)
-  if target.exists():
-    return target
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  fd, tmp = tempfile.mkstemp(prefix=f".{target.name}.", dir=BUILD_DIR)
-  os.close(fd)
-  proc = subprocess.run(nvcc_command(name, Path(tmp)), capture_output=True,
-                        text=True)
-  if proc.returncode != 0:
-    os.unlink(tmp)
-    raise RuntimeError(f"CUDA kernel build of {name} failed (nvcc exit "
-                       f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-  os.replace(tmp, target)
-  return target
+  return build_all((name,))[name]
+
+
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+  """Compiles every named source that is not built yet, one `nvcc` for
+  each, all started together; returns each library's path. Raises with
+  the compiler's output if any build failed."""
+  targets = {name: library_path(name) for name in names}
+  jobs = {}
+  for name, target in targets.items():
+    if target.exists():
+      continue
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".{target.name}.", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen(nvcc_command(name, Path(tmp)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    jobs[name] = (proc, tmp)
+  failures = []
+  for name, (proc, tmp) in jobs.items():
+    output, _ = proc.communicate()
+    if proc.returncode != 0:
+      os.unlink(tmp)
+      failures.append(f"CUDA kernel build of {name} failed (nvcc exit "
+                      f"{proc.returncode}):\n{output}")
+    else:
+      os.replace(tmp, targets[name])
+  if failures:
+    raise RuntimeError("\n".join(failures))
+  return targets
 
 
 def library(name: str, signatures: Signatures) -> ctypes.CDLL:

@@ -43,7 +43,10 @@ class CoreNet(nn.Module):
   parameter tree onto `state_dict()` key by key.
 
   Parameters are allocated uninitialized on `device`; load a state dict or
-  call `reset_parameters(generator)`. Only eval mode is ported.
+  call `reset_parameters(generator)`. `model.train()` is the JAX
+  package's `apply(..., train=True)`: every BatchRenorm, the encoder's
+  included, normalizes with batch statistics and updates its running
+  statistics; `model.eval()` is `train=False`.
   """
 
   def __init__(self, config: CoreNetConfig,

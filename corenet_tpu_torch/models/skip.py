@@ -12,8 +12,9 @@ quirks of the reference model:
 * voxels behind the camera (pre-division z < 0) index pixel (0, 0) of the
   padded map, a pad cell, so they read `outside_value` too.
 
-Every gather goes through ops/skip_gather.py: its CUDA kernel for CUDA
-tensors, its plain version for CPU tensors. The JAX package skipped its
+Every gather goes through ops/skip_gather.py, differentiable in the map:
+its CUDA kernels (gather, and scatter-add for the gradient) for CUDA
+tensors, its plain versions for CPU tensors. The JAX package skipped its
 Pallas kernel below 32768 voxels, a TPU launch-cost threshold that does
 not carry over, so on the card all four skips of a decode launch it.
 """

@@ -1,11 +1,12 @@
-"""The ray-traced skip connection's pixel gather: a CUDA kernel for CUDA
-tensors, its plain PyTorch version for CPU tensors.
+"""The ray-traced skip connection's pixel gather and its gradient: CUDA
+kernels for CUDA tensors, their plain PyTorch versions for CPU tensors.
 
-Counterpart of corenet_tpu/ops/skip_gather.py::skip_gather (forward). The
-kernel is `csrc/skip_gather.cu`; its note says what bounds it and how it
-is laid out. The backward (the TPU kernel's `_bwd_kernel`, a scatter-add)
-comes with the training step: until then a CUDA input that requires grad
-is refused rather than differentiated through another path.
+Counterpart of corenet_tpu/ops/skip_gather.py::skip_gather, forward and
+backward. Both kernels are in `csrc/skip_gather.cu`; its note says what
+bounds them and how they are laid out. `skip_gather` is differentiable in
+the map through `SkipGather`, whose forward is `skip_gather_forward` and
+whose backward is `skip_gather_backward`, a scatter-add with f32
+accumulation; indices get no gradient.
 """
 
 from __future__ import annotations
@@ -16,12 +17,16 @@ import torch
 
 from corenet_tpu_torch import kernels
 
-# Launches of the CUDA kernel in this process. Incremented only where the
-# kernel is launched, so a run can show that its path went through it.
+# Launches of the forward and the backward CUDA kernel in this process.
+# Incremented only where a kernel is launched, so a run can show that its
+# path went through it.
 launch_count = 0
+backward_launch_count = 0
 
 _SIGNATURES = {
     "skip_gather_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p], ctypes.c_int),
+    "skip_gather_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p], ctypes.c_int),
     "skip_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -37,6 +42,35 @@ def skip_gather_reference(fmap_padded: torch.Tensor, px: torch.Tensor,
   return torch.gather(flat, 1, idx)
 
 
+def skip_gather_backward_reference(dout: torch.Tensor, px: torch.Tensor,
+                                   py: torch.Tensor, h2: int, w2: int
+                                   ) -> torch.Tensor:
+  """The plain version of the gradient: `index_add_` of dout over the flat
+  b·H2·W2 + py·W2 + px index into a zeroed f32 buffer, cast to dout's
+  dtype."""
+  b, n, c = dout.shape
+  base = torch.arange(b, device=dout.device)[:, None] * (h2 * w2)
+  flat = (base + py.long() * w2 + px.long()).reshape(-1)
+  acc = torch.zeros((b * h2 * w2, c), dtype=torch.float32,
+                    device=dout.device)
+  acc.index_add_(0, flat, dout.reshape(b * n, c).float())
+  return acc.reshape(b, h2, w2, c).to(dout.dtype)
+
+
+def _check_indices(b: int, device: torch.device, px: torch.Tensor,
+                   py: torch.Tensor):
+  for name, t in (("px", px), ("py", py)):
+    if t.dtype != torch.int32:
+      raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != 2 or t.shape[0] != b or t.shape != px.shape:
+      raise ValueError(f"px and py must both be [B={b}, N], got "
+                       f"{tuple(px.shape)} and {tuple(py.shape)}")
+    if t.device != device:
+      raise ValueError(f"{name} is on {t.device}, the features on {device}")
+    if not t.is_contiguous():
+      raise ValueError(f"{name} must be contiguous")
+
+
 def _check(fmap_padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
   if fmap_padded.dim() != 4:
     raise ValueError(f"fmap_padded must be [B, H2, W2, C], got "
@@ -44,40 +78,28 @@ def _check(fmap_padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
   if fmap_padded.dtype not in _DTYPES:
     raise TypeError(f"fmap_padded must be float32 or bfloat16, got "
                     f"{fmap_padded.dtype}")
-  b = fmap_padded.shape[0]
-  for name, t in (("px", px), ("py", py)):
-    if t.dtype != torch.int32:
-      raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if t.dim() != 2 or t.shape[0] != b or t.shape != px.shape:
-      raise ValueError(f"px and py must both be [B={b}, N], got "
-                       f"{tuple(px.shape)} and {tuple(py.shape)}")
-    if t.device != fmap_padded.device:
-      raise ValueError(f"{name} is on {t.device}, fmap_padded on "
-                       f"{fmap_padded.device}")
-  for name, t in (("fmap_padded", fmap_padded), ("px", px), ("py", py)):
-    if not t.is_contiguous():
-      raise ValueError(f"{name} must be contiguous")
+  if not fmap_padded.is_contiguous():
+    raise ValueError("fmap_padded must be contiguous")
+  _check_indices(fmap_padded.shape[0], fmap_padded.device, px, py)
+  if fmap_padded.device.type not in ("cpu", "cuda"):
+    raise ValueError(f"skip_gather runs on CPU or CUDA tensors, not "
+                     f"{fmap_padded.device}")
 
 
-def skip_gather(fmap_padded: torch.Tensor,  # [B, H2, W2, C] f32 or bf16
-                px: torch.Tensor,           # [B, N] int32, in [0, W2)
-                py: torch.Tensor,           # [B, N] int32, in [0, H2)
-                ) -> torch.Tensor:
-  """Gathers fmap_padded[b, py, px, :] for each index pair → [B, N, C] in
-  fmap_padded's dtype.
+def _raise_on(lib, err: int, what: str):
+  if err != 0:
+    msg = lib.skip_gather_error_string(err).decode()
+    raise RuntimeError(f"skip_gather {what} kernel launch failed: CUDA error "
+                       f"{err} ({msg})")
 
-  A CUDA input launches the kernel on the current stream, or raises: it
-  never takes the plain version. A CPU input takes the plain version."""
-  _check(fmap_padded, px, py)
+
+def skip_gather_forward(fmap_padded: torch.Tensor, px: torch.Tensor,
+                        py: torch.Tensor) -> torch.Tensor:
+  """The gather without autograd: the CUDA kernel on the current stream
+  for a CUDA input, the plain version for a CPU one."""
   device = fmap_padded.device
   if device.type == "cpu":
     return skip_gather_reference(fmap_padded, px, py)
-  if device.type != "cuda":
-    raise ValueError(f"skip_gather runs on CPU or CUDA tensors, not {device}")
-  if fmap_padded.requires_grad:
-    raise RuntimeError(
-        "skip_gather has no CUDA backward yet; run it under "
-        "torch.inference_mode() or torch.no_grad()")
   b, h2, w2, c = fmap_padded.shape
   n = px.shape[1]
   out = torch.empty((b, n, c), dtype=fmap_padded.dtype, device=device)
@@ -90,10 +112,74 @@ def skip_gather(fmap_padded: torch.Tensor,  # [B, H2, W2, C] f32 or bf16
     err = lib.skip_gather_fwd(fmap_padded.data_ptr(), px.data_ptr(),
                               py.data_ptr(), out.data_ptr(), b, n, h2, w2,
                               c * elem, elem, stream)
-  if err != 0:
-    msg = lib.skip_gather_error_string(err).decode()
-    raise RuntimeError(f"skip_gather kernel launch failed: CUDA error "
-                       f"{err} ({msg})")
+  _raise_on(lib, err, "forward")
   global launch_count
   launch_count += 1
   return out
+
+
+def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
+                         py: torch.Tensor, h2: int, w2: int) -> torch.Tensor:
+  """d fmap_padded [B, H2, W2, C] in dout's dtype from dout [B, N, C]:
+  the CUDA kernel on the current stream for a CUDA input, the plain
+  version for a CPU one."""
+  if dout.dim() != 3 or dout.dtype not in _DTYPES:
+    raise ValueError(f"dout must be float32 or bfloat16 [B, N, C], got "
+                     f"{dout.dtype} {tuple(dout.shape)}")
+  if not dout.is_contiguous():
+    raise ValueError("dout must be contiguous")
+  b, n, c = dout.shape
+  _check_indices(b, dout.device, px, py)
+  if px.shape[1] != n:
+    raise ValueError(f"dout has {n} voxels, the indices {px.shape[1]}")
+  device = dout.device
+  if device.type == "cpu":
+    return skip_gather_backward_reference(dout, px, py, h2, w2)
+  if device.type != "cuda":
+    raise ValueError(f"skip_gather runs on CPU or CUDA tensors, not {device}")
+  acc = torch.empty((b, h2, w2, c), dtype=torch.float32, device=device)
+  dfmap = acc if dout.dtype == torch.float32 else torch.empty_like(
+      acc, dtype=dout.dtype)
+  if dout.numel() == 0:
+    return dfmap.zero_()
+  lib = kernels.library("skip_gather", _SIGNATURES)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.skip_gather_bwd(dout.data_ptr(), px.data_ptr(), py.data_ptr(),
+                              acc.data_ptr(), dfmap.data_ptr(), b, n, h2, w2,
+                              c, dout.element_size(), stream)
+  _raise_on(lib, err, "backward")
+  global backward_launch_count
+  backward_launch_count += 1
+  return dfmap
+
+
+class SkipGather(torch.autograd.Function):
+  """The gather, differentiable in the map. Both directions look up the
+  module's `skip_gather_forward` / `skip_gather_backward` at call time."""
+
+  @staticmethod
+  def forward(ctx, fmap_padded, px, py):
+    ctx.save_for_backward(px, py)
+    ctx.map_hw = tuple(fmap_padded.shape[1:3])
+    return skip_gather_forward(fmap_padded, px, py)
+
+  @staticmethod
+  def backward(ctx, dout):
+    px, py = ctx.saved_tensors
+    return (skip_gather_backward(dout.contiguous(), px, py, *ctx.map_hw),
+            None, None)
+
+
+def skip_gather(fmap_padded: torch.Tensor,  # [B, H2, W2, C] f32 or bf16
+                px: torch.Tensor,           # [B, N] int32, in [0, W2)
+                py: torch.Tensor,           # [B, N] int32, in [0, H2)
+                ) -> torch.Tensor:
+  """Gathers fmap_padded[b, py, px, :] for each index pair → [B, N, C] in
+  fmap_padded's dtype; differentiable in fmap_padded.
+
+  A CUDA input launches the kernels (forward, and backward when a
+  gradient flows) on the current stream, or raises: it never takes the
+  plain versions. A CPU input takes the plain versions."""
+  _check(fmap_padded, px, py)
+  return SkipGather.apply(fmap_padded, px, py)

@@ -1,1 +1,2 @@
-"""Inference-side pieces of the training code."""
+"""The training state, the training step (on batches with their
+ground-truth grid) and the eval forward."""

@@ -123,8 +123,86 @@ def test_batch_renorm_eval_matches_jax(spatial):
 
 
 def test_batch_renorm_refuses_train_mode():
+  # Train mode is ported for float32; bf16 (the JAX package's shifted
+  # one-pass variance) comes with the bf16 port.
   with pytest.raises(NotImplementedError):
-    BatchRenorm(3).train()(torch.zeros(2, 3))
+    BatchRenorm(3).train()(torch.zeros(2, 3, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("steps", [0, 6000, 45000])
+@pytest.mark.parametrize("spatial", [(), (3, 4, 5)])
+def test_batch_renorm_train_matches_jax(spatial, steps):
+  """Train mode against flax's `apply(..., train=True, mutable=...)`:
+  output, gradients of x, scale and bias, and the new running statistics,
+  within 1e-5 relative. Past the ramp start (5000) the r and d clips
+  engage: the batch's spread and mean sit far from the running ones."""
+  rng = np.random.default_rng(steps + len(spatial))
+  c = 7
+  # At 45000 the clips are widest (r_max 3, d_max 5): a wider, shifted
+  # batch still reaches them.
+  loc, spread = (8.0, 5.0) if steps == 45000 else (1.0, 2.0)
+  x = rng.normal(loc, spread, (4,) + spatial + (c,)).astype(np.float32)
+  dout = rng.standard_normal(x.shape).astype(np.float32)
+  variables = {
+      "params": {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                 "bias": rng.normal(0, 0.3, c).astype(np.float32)},
+      "batch_stats": {"mean": rng.normal(0, 0.3, c).astype(np.float32),
+                      "var": rng.uniform(0.5, 2.0, c).astype(np.float32),
+                      "steps": np.int32(steps)}}
+  jl = JaxBatchRenorm(eps=1e-3)
+
+  def objective(params, xx):
+    y, updates = jl.apply({"params": params,
+                           "batch_stats": variables["batch_stats"]},
+                          xx, True, mutable=["batch_stats"])
+    return (y * dout).sum(), (y, updates["batch_stats"])
+
+  (_, (ref, ref_stats)), (ref_gp, ref_gx) = jax.value_and_grad(
+      objective, argnums=(0, 1), has_aux=True)(variables["params"],
+                                               jnp.asarray(x))
+
+  tl = _bridged("bn", BatchRenorm(c, eps=1e-3), variables).train()
+  xt = _to_torch_layout(x).requires_grad_(True)
+  y = tl(xt)
+  y.backward(_to_torch_layout(dout))
+
+  def close(got, want):
+    want = np.asarray(want)
+    tt.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+  close(_from_torch_layout(y), ref)
+  close(_from_torch_layout(xt.grad), ref_gx)
+  close(tl.scale.grad.numpy(), ref_gp["scale"])
+  close(tl.bias.grad.numpy(), ref_gp["bias"])
+  close(tl.mean.numpy(), ref_stats["mean"])
+  close(tl.var.numpy(), ref_stats["var"])
+  assert int(tl.steps) == int(ref_stats["steps"]) == steps + 1
+  if steps > 5000:  # the r and d clips engage in some channel
+    stats = variables["batch_stats"]
+    running_std = np.sqrt(stats["var"] + 1e-3)
+    r = np.sqrt(x.reshape(-1, c).var(axis=0) + 1e-3) / running_std
+    d = (x.reshape(-1, c).mean(axis=0) - stats["mean"]) / running_std
+    r_max = 1 + min(2 * (steps - 5000) / 35000, 2)
+    d_max = min(5 * (steps - 5000) / 20000, 5)
+    assert (r > r_max).any() and (np.abs(d) > d_max).any()
+
+
+def test_ramp_start_is_shared_and_settable():
+  from corenet_tpu_torch.models import batch_renorm
+  assert batch_renorm.ramp_start() == 5000
+  x = torch.from_numpy(np.random.default_rng(0).normal(
+      1.0, 2.0, (4, 3, 5)).astype(np.float32))
+  layer = BatchRenorm(3).train()
+  layer.steps.fill_(100)
+  plain = layer(x)  # before the ramp start: r = 1, d = 0
+  batch_renorm.set_ramp_start(0)
+  try:
+    layer.steps.fill_(100)
+    ramped = layer(x)
+  finally:
+    batch_renorm.set_ramp_start(5000)
+  assert batch_renorm.ramp_start() == 5000
+  assert not torch.allclose(plain, ramped)
 
 
 @pytest.mark.parametrize("make,fan_in,kaiming", [
