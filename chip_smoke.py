@@ -44,6 +44,26 @@ Phases; the run fails at the first that fails:
               the kernels matches the same step with the plain versions.
               Times 20 steps one by one and profiles one more. Then one
               step at 32³ on the card against the same step on the CPU.
+  6. train-gt h7 training as the JAX package trains by default: ground
+              truth voxelized in the step from the batch's triangles
+              (blocked rasterizer: phase A, the CUDA block_scatter_or,
+              the packed fill, the OR over labeled mesh slots) and phased
+              by the CUDA phased_gt (s = 2) for the phase loss on
+              phase-major logits; h7's voxelization settings (irm 8, no
+              conservative rasterization, adaptive fill, a 24-pixel
+              window). Each scene: slot 0 a cube shell at [0.3, 0.7]³
+              moved by a seeded offset of at most 0.05, subdivided to
+              12,288 triangles; slot 1 a seeded closed sphere (~1.5k
+              triangles), label 0 in the last scene; padded to 16,384.
+              Checks 1 + 1 + 4 + 4 + 1 launches per step (block_scatter_or,
+              phased_gt, skip_gather, its backward, fgbg_sums), the step's
+              phased GT against the plain scatter + fill + unpack +
+              permute on the card and the card's packed GT against the
+              CPU's (two scenes, bit for bit), finite loss and gradients,
+              a falling loss, the kernel step against the plain step, and
+              the phase loss against the plain loss on the same grid.
+              Times K3 and K4 at the step's shapes, the GT's parts, 20
+              steps, and profiles one more.
 
 Float32 throughout: TF32 is switched off for convolutions and matmuls, so
 the float32 path computes in float32 on the card as on the CPU.
@@ -75,6 +95,14 @@ SERVE_RUNS = 30
 TRAIN_RUNS = 20
 LOSS_STEPS = 10
 TRAIN_SMALL = (32, 32, 32)  # the card-against-CPU step
+# h7's voxelization (configs/models/h7.json5; fill rounds 0 = adaptive,
+# the window of corenet_tpu/eval/pipeline.py:40), for two label values.
+H7_VOX = dict(sub_grid_sampling=False, image_resolution_multiplier=8,
+              conservative_rasterization=False,
+              projection_depth_multiplier=1, max_bbox_pixels=24,
+              fill_rounds=None, num_label_values=2)
+GT_TRIANGLES = 16384  # padded triangles per scene
+GT_CPU_SCENES = [0, BATCH - 1]  # voxelized on the CPU too
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # The decoder's skips: stage → (native resolution / layer resolution,
 # padded map H2 = W2 at 256² images, channels).
@@ -103,11 +131,11 @@ def camera_and_v2x(torch, res):
   return camera, v2x
 
 
-def seeded_model(torch, CoreNet, config, seed):
+def seeded_model(torch, CoreNet, config, seed, phase_output=False):
   """A CPU CoreNet with the port's seeded init and random BatchRenorm
   running statistics (mean ~ N(0, 0.3), var ~ U(0.5, 2)), and a CPU copy
   of its state_dict."""
-  model = CoreNet(config)
+  model = CoreNet(config, phase_output=phase_output)
   model.reset_parameters(torch.Generator().manual_seed(seed))
   gen = torch.Generator().manual_seed(seed + 1)
   with torch.no_grad():
@@ -398,20 +426,46 @@ def fgbg_rows(torch, fgbg, dev, gen):
   return rows
 
 
+# Each kernel's swappable forward (or backward) and its plain version.
+PLAIN = {
+    "skip_gather": (("skip_gather_forward", "skip_gather_reference"),
+                    ("skip_gather_backward",
+                     "skip_gather_backward_reference")),
+    "fgbg_loss": (("fgbg_sums_forward", "fgbg_sums_reference"),),
+    "block_scatter": (("block_scatter_or_forward",
+                       "block_scatter_or_reference"),),
+    "phased_gt": (("phased_gt_forward", "phased_gt_reference"),),
+}
+
+
 @contextlib.contextmanager
-def plain_versions(op, fgbg):
-  """Swaps the kernels of the skip gather (both directions) and of
-  fgbg_sums for their plain versions."""
-  saved = (op.skip_gather_forward, op.skip_gather_backward,
-           fgbg.fgbg_sums_forward)
-  op.skip_gather_forward = op.skip_gather_reference
-  op.skip_gather_backward = op.skip_gather_backward_reference
-  fgbg.fgbg_sums_forward = fgbg.fgbg_sums_reference
+def plain_versions(*modules):
+  """Swaps the kernels of the given ops modules for their plain
+  versions."""
+  saved = []
+  for module in modules:
+    for name, plain in PLAIN[module.__name__.rsplit(".", 1)[-1]]:
+      saved.append((module, name, getattr(module, name)))
+      setattr(module, name, getattr(module, plain))
   try:
     yield
   finally:
-    (op.skip_gather_forward, op.skip_gather_backward,
-     fgbg.fgbg_sums_forward) = saved
+    for module, name, fn in saved:
+      setattr(module, name, fn)
+
+
+def launch_counts(*modules):
+  """Every launch counter of the given ops modules."""
+  return tuple(getattr(module, name) for module in modules
+               for name in ("launch_count", "backward_launch_count")
+               if hasattr(module, name))
+
+
+def zero_counts(*modules):
+  for module in modules:
+    for name in ("launch_count", "backward_launch_count"):
+      if hasattr(module, name):
+        setattr(module, name, 0)
 
 
 def ellipsoid_grid(torch, dev, res, batch, offsets, seed):
@@ -445,7 +499,7 @@ def feeds_batch_renorm(name):
       or re.fullmatch(r"decoder\.stage_\d_c\.bias", name) is not None)
 
 
-def compare_with_plain_step(torch, op, fgbg, state, step, batch):
+def compare_with_plain_step(torch, modules, state, step, batch, label):
   """One step with the kernels and the same step, from the same state,
   with the plain versions: loss within 1e-6 relative and every gradient
   that carries mass within 1e-4 relative L2. cuDNN is held to
@@ -460,12 +514,11 @@ def compare_with_plain_step(torch, op, fgbg, state, step, batch):
     for plain in (False, True):
       model.load_state_dict(snap_model)
       optimizer.load_state_dict(snap_opt)
-      counts = (op.launch_count, op.backward_launch_count, fgbg.launch_count)
-      with plain_versions(op, fgbg) if plain else contextlib.nullcontext():
+      counts = launch_counts(*modules)
+      with plain_versions(*modules) if plain else contextlib.nullcontext():
         _, metrics = step(state, batch)
       torch.cuda.synchronize()
-      launched = (op.launch_count, op.backward_launch_count,
-                  fgbg.launch_count) != counts
+      launched = launch_counts(*modules) != counts
       if launched == plain:
         raise AssertionError(f"the {'plain' if plain else 'kernel'} step "
                              f"{'launched' if plain else 'skipped'} kernels")
@@ -492,7 +545,7 @@ def compare_with_plain_step(torch, op, fgbg, state, step, batch):
   if not worst <= 1e-4:
     raise AssertionError(f"gradient {worst_name} of the kernel step differs "
                          f"from the plain step's by {worst} relative L2")
-  log(f"h7 train: the step with the kernels matches the step with the plain "
+  log(f"{label}: the step with the kernels matches the step with the plain "
       f"versions: loss {loss_k:.7f} vs {loss_p:.7f} ({loss_rel:.2e} "
       f"relative), worst of {checked} gradients {worst:.2e} relative L2 "
       f"({worst_name})")
@@ -537,7 +590,7 @@ def train_h7(torch, op, fgbg, CoreNet, config, image, camera, v2x, offsets,
       f"launches (skip_gather, backward, fgbg_sums) {launches}, loss and "
       "all gradients finite")
 
-  compare_with_plain_step(torch, op, fgbg, state, step, batch)
+  compare_with_plain_step(torch, (op, fgbg), state, step, batch, "h7 train")
 
   losses = []
   for _ in range(LOSS_STEPS):
@@ -605,6 +658,356 @@ def train_card_against_cpu(torch, CoreNet, CoreNetConfig, DecoderConfig,
       f"({rel:.2e} relative; tolerance 1e-4)")
 
 
+def cube_shell():
+  """The 12-triangle closed cube at [0.3, 0.7]³ of bench.py's scenes
+  (__graft_entry__._example_inputs), float32[12, 3, 3]."""
+  import numpy as np
+  m, x = 0.3, 0.7
+  return np.array([
+      [[m, m, m], [m, x, m], [m, m, x]], [[m, x, x], [m, x, m], [m, m, x]],
+      [[x, m, m], [x, x, m], [x, m, x]], [[x, x, x], [x, x, m], [x, m, x]],
+      [[m, m, m], [m, m, x], [x, m, m]], [[x, m, x], [m, m, x], [x, m, m]],
+      [[m, x, m], [m, x, x], [x, x, m]], [[x, x, x], [m, x, x], [x, x, m]],
+      [[m, m, m], [m, x, m], [x, m, m]], [[x, x, m], [m, x, m], [x, m, m]],
+      [[m, m, x], [m, x, x], [x, m, x]], [[x, x, x], [m, x, x], [x, m, x]],
+  ], np.float32)
+
+
+def sphere_mesh(rng, centre, radius, n_lat=8, n_lon=12):
+  """A closed latitude-longitude sphere with seeded per-vertex radii
+  (±10 %), float32[T, 3, 3]."""
+  import numpy as np
+  theta = np.linspace(0, np.pi, n_lat + 1)[1:-1]
+  phi = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+  ring = np.stack([np.outer(np.sin(theta), np.cos(phi)),
+                   np.outer(np.sin(theta), np.sin(phi)),
+                   np.repeat(np.cos(theta)[:, None], n_lon, 1)], axis=-1)
+  verts = np.concatenate([[[0, 0, 1]], ring.reshape(-1, 3), [[0, 0, -1]]])
+  verts = centre + verts * radius * rng.uniform(0.9, 1.1, (len(verts), 1))
+
+  def idx(i, j):
+    return 1 + i * n_lon + j % n_lon
+
+  tris = []
+  for j in range(n_lon):
+    tris.append((0, idx(0, j), idx(0, j + 1)))
+    tris.append((len(verts) - 1, idx(n_lat - 2, j + 1), idx(n_lat - 2, j)))
+    for i in range(n_lat - 2):
+      tris.append((idx(i, j), idx(i + 1, j), idx(i + 1, j + 1)))
+      tris.append((idx(i, j), idx(i + 1, j + 1), idx(i, j + 1)))
+  return verts[np.array(tris)].astype(np.float32)
+
+
+def triangle_batch(torch, image, camera, seed):
+  """The phase-6 batch on the host: per scene the subdivided cube shell
+  (slot 0) moved by a seeded offset of at most 0.05 per axis, and a
+  seeded sphere of radius 0.09 near a corner (slot 1, label 0 in the last
+  scene), padded to GT_TRIANGLES; the serving images and cameras."""
+  import numpy as np
+  from corenet_tpu_torch.data.batching import (
+      VOXELIZE_WINDOW_PIXELS, subdivide_triangles)
+  rng = np.random.default_rng(seed)
+  irm = H7_VOX["image_resolution_multiplier"]
+  max_edge = (VOXELIZE_WINDOW_PIXELS - 4) / irm / OUTPUT_RES[0]
+  triangles = np.zeros((BATCH, GT_TRIANGLES, 3, 3), np.float32)
+  slot = np.zeros((BATCH, GT_TRIANGLES), np.int32)
+  valid = np.zeros((BATCH, GT_TRIANGLES), bool)
+  counts = []
+  for i in range(BATCH):
+    cube = subdivide_triangles(
+        cube_shell() + rng.uniform(-0.05, 0.05, 3).astype(np.float32),
+        max_edge)
+    sphere = subdivide_triangles(sphere_mesh(
+        rng, rng.uniform([0.13, 0.13, 0.84], [0.17, 0.17, 0.88]), 0.09),
+                                 max_edge)
+    n = len(cube) + len(sphere)
+    if n > GT_TRIANGLES:
+      raise AssertionError(f"scene {i}: {n} triangles > {GT_TRIANGLES}")
+    triangles[i, :n] = np.concatenate([cube, sphere])
+    slot[i, len(cube):n] = 1
+    valid[i, :n] = True
+    counts.append((len(cube), len(sphere)))
+  labels = np.ones((BATCH, 2), np.int32)
+  labels[BATCH - 1, 1] = 0
+  batch = {"image": image, "camera": camera,
+           "triangles": torch.from_numpy(triangles),
+           "tri_mesh_slot": torch.from_numpy(slot),
+           "tri_valid": torch.from_numpy(valid),
+           "mesh_labels": torch.from_numpy(labels),
+           "grid_offset": torch.from_numpy(
+               rng.uniform(0.0, 1.0, (BATCH, 3)).astype(np.float32))}
+  return batch, counts
+
+
+GT_KEYS = ("triangles", "tri_mesh_slot", "tri_valid", "mesh_labels",
+           "grid_offset")
+
+
+def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds):
+  """K3 and K4 at the step's shapes against their plain versions, and the
+  device time of the GT's parts: phase A, the scatter, the fill (its
+  static loop with the rounds the adaptive fill ran), the slot OR with
+  phased_gt."""
+  from corenet_tpu_torch.train import gt
+  from corenet_tpu_torch.voxel import packed as packed_mod
+  from corenet_tpu_torch.voxel import raster_fast
+  m = OUTPUT_RES[0]
+  nw = m // 32
+  meshes = batch["mesh_labels"].shape[1]
+  v2v = gt._view2voxel_uniform(batch["grid_offset"], float(m), meshes)
+
+  def phase_a():
+    return raster_fast._phase_a(
+        batch["triangles"], batch["tri_mesh_slot"], v2v, batch["tri_valid"],
+        m=m, irm=H7_VOX["image_resolution_multiplier"],
+        conservative=H7_VOX["conservative_rasterization"])
+
+  origins, pw = phase_a()
+  kw = dict(meshes=meshes, h=m, w=m, nw=nw)
+  grids = scatter.block_scatter_or(origins, pw, **kw)
+  plain = scatter.block_scatter_or_reference(origins, pw, **kw)
+  torch.cuda.synchronize()
+  if not torch.equal(grids, plain):
+    raise AssertionError("block_scatter_or differs from its plain version "
+                         "at the step's shapes")
+  valid = int((origins >= 0).sum())
+  atomics = int((pw != 0).sum())
+  block_bytes = pw[0, 0].numel() * 4
+  k3_bytes = valid * (block_bytes + 4) + grids.numel() * 4
+  k3 = {"origins": list(origins.shape), "pw": list(pw.shape),
+        "out": list(grids.shape), "valid_triangles": valid,
+        "nonzero_words": atomics, "bytes": k3_bytes, "max_abs_err": 0.0,
+        "ms": device_ms(torch, lambda: scatter.block_scatter_or(
+            origins, pw, **kw)),
+        "plain_ms": device_ms(torch, lambda: scatter.
+                              block_scatter_or_reference(origins, pw, **kw),
+                              reps=2, trials=3),
+        "library_ms": None, "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3}
+  phases = phased.phased_gt(packed_or, 2)
+  plain = phased.phased_gt_reference(packed_or, 2)
+  torch.cuda.synchronize()
+  if not torch.equal(phases, plain):
+    raise AssertionError("phased_gt differs from its plain version at the "
+                         "step's shapes")
+  k4_bytes = packed_or.numel() * 4 + phases.numel()
+  k4 = {"packed": list(packed_or.shape), "out": list(phases.shape),
+        "bytes": k4_bytes, "max_abs_err": 0.0,
+        "ms": device_ms(torch, lambda: phased.phased_gt(packed_or, 2)),
+        "plain_ms": device_ms(
+            torch, lambda: phased.phased_gt_reference(packed_or, 2)),
+        "library_ms": None, "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3}
+  for name, row in (("block_scatter_or", k3), ("phased_gt", k4)):
+    log(f"{name} at the step's shapes: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library none, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bytes']} B)" +
+        (f"; {valid} valid triangles, {atomics} nonzero words (atomics)"
+         if name == "block_scatter_or" else ""))
+
+  words = grids.reshape(grids.shape[:-1] + (m, nw))
+  labels = batch["mesh_labels"]
+
+  def slot_or_phased():
+    masked = torch.where((labels > 0)[:, :, None, None, None], words, 0)
+    return phased.phased_gt((masked[:, 0] | masked[:, 1]).contiguous(), 2)
+
+  split = {"phase_a_ms": device_ms(torch, phase_a, reps=3, trials=5),
+           "scatter_ms": k3["ms"],
+           "fill_ms": device_ms(torch, lambda: packed_mod.fill_inside_packed(
+               words, fill_rounds=rounds), reps=3, trials=5),
+           "fill_rounds": rounds,
+           "slot_or_phased_gt_ms": device_ms(torch, slot_or_phased)}
+  split["sum_ms"] = (split["phase_a_ms"] + split["scatter_ms"] +
+                     split["fill_ms"] + split["slot_or_phased_gt_ms"])
+  log("GT device time per step (CUDA graphs): " + ", ".join(
+      f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+      for k, v in split.items()))
+  return k3, k4, split
+
+
+def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
+  """Phase 6: h7 training on ground truth voxelized in the step, with the
+  phase loss. Returns the launches of the first step (skip_gather, its
+  backward, fgbg_sums, block_scatter_or, phased_gt), the K3 and K4 rows,
+  the GT split and the median step time in ms."""
+  from corenet_tpu_torch.train import gt
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  from corenet_tpu_torch.voxel import packed as packed_mod
+  op, fgbg, scatter, phased = mods
+  host, counts = triangle_batch(torch, image, camera, SEED + 41)
+  batch = {k: v.to(dev) for k, v in host.items()}
+  log(f"h7 train-gt: (cube, sphere) triangles per scene {counts}, padded "
+      f"to {GT_TRIANGLES}; slot 1 label 0 in scene {BATCH - 1}")
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 40,
+                          phase_output=True)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+
+  # The first step, counted, with its phased labels caught on the way.
+  caught = []
+  kernel_phased = phased.phased_gt_forward
+
+  def catch(packed, s):
+    caught.append(kernel_phased(packed, s))
+    return caught[-1]
+
+  phased.phased_gt_forward = catch
+  torch.cuda.synchronize()
+  zero_counts(*mods)
+  rounds0 = packed_mod.round_count
+  start = time.perf_counter()
+  try:
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+  finally:
+    phased.phased_gt_forward = kernel_phased
+  first_s = time.perf_counter() - start
+  launches = launch_counts(*mods)
+  rounds = packed_mod.round_count - rounds0
+  if launches != (4, 4, 1, 1, 1):
+    raise AssertionError(f"h7 train-gt step launched (skip_gather, its "
+                         f"backward, fgbg_sums, block_scatter_or, phased_gt) "
+                         f"{launches} times, expected (4, 4, 1, 1, 1)")
+  first_loss = float(metrics["loss"])
+  bad = [n for n, p in state.model.named_parameters()
+         if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+  if not math.isfinite(first_loss) or bad:
+    raise AssertionError(f"h7 train-gt: loss {first_loss}, non-finite or "
+                         f"missing gradients {bad[:5]}")
+  log(f"h7 train-gt: first step {first_s:.3f} s, loss {first_loss:.6f}, "
+      f"launches (skip_gather, backward, fgbg_sums, block_scatter_or, "
+      f"phased_gt) {launches}, {rounds} fill rounds, loss and all "
+      "gradients finite")
+
+  # The step's GT against the plain path on the card and the CPU's.
+  args = [batch[k] for k in GT_KEYS]
+  packed_or, v2x = gt.voxelize_batch_packed_fgbg(*args, resolution=OUTPUT_RES,
+                                                 **H7_VOX)
+  with plain_versions(scatter, phased):
+    counted = launch_counts(scatter, phased)
+    plain_or, _ = gt.voxelize_batch_packed_fgbg(*args,
+                                                resolution=OUTPUT_RES,
+                                                **H7_VOX)
+    plain_phased = phased.phased_gt(plain_or, 2)
+    if launch_counts(scatter, phased) != counted:
+      raise AssertionError("the plain GT path launched a kernel")
+  torch.cuda.synchronize()
+  if not (torch.equal(caught[0], plain_phased)
+          and torch.equal(packed_or, plain_or)):
+    raise AssertionError("the step's phased GT differs from the plain "
+                         "scatter + fill + unpack + permute")
+  share = float(plain_phased.float().mean())
+  start = time.perf_counter()
+  cpu_or, _ = gt.voxelize_batch_packed_fgbg(
+      *(host[k][GT_CPU_SCENES] for k in GT_KEYS), resolution=OUTPUT_RES,
+      **H7_VOX)
+  cpu_s = time.perf_counter() - start
+  differ = int((cpu_or ^ packed_or[GT_CPU_SCENES].cpu()).ne(0).sum())
+  if differ:
+    raise AssertionError(f"{differ} packed words of scenes {GT_CPU_SCENES} "
+                         "differ between the card and the CPU")
+  log(f"h7 train-gt: the step's phased GT {list(caught[0].shape)} uint8 "
+      f"(foreground {share:.4f}) equals the plain scatter + fill + unpack + "
+      f"permute on the card; the card's packed GT of scenes {GT_CPU_SCENES} "
+      f"equals the CPU's bit for bit ({cpu_s:.1f} s on the CPU)")
+
+  compare_with_plain_step(torch, mods, state, step, batch, "h7 train-gt")
+  phase_loss_rel = compare_with_plain_loss(torch, CoreNet, config, state,
+                                           step, batch, packed_or, v2x)
+
+  losses = []
+  for _ in range(LOSS_STEPS):
+    state, metrics = step(state, batch)
+    losses.append(float(metrics["loss"]))
+  if not losses[-1] < first_loss:
+    raise AssertionError(f"h7 train-gt: loss did not fall over {LOSS_STEPS} "
+                         f"steps: {first_loss} then {losses}")
+  log(f"h7 train-gt: loss {first_loss:.6f} at step 1, then " +
+      ", ".join(f"{v:.6f}" for v in losses))
+
+  k3, k4, split = gt_kernel_rows(torch, scatter, phased, batch, packed_or,
+                                 rounds)
+  gt_wall = []
+  for _ in range(5):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    words, _ = gt.voxelize_batch_packed_fgbg(*args, resolution=OUTPUT_RES,
+                                             **H7_VOX)
+    phased.phased_gt(words, 2)
+    torch.cuda.synchronize()
+    gt_wall.append((time.perf_counter() - start) * 1e3)
+  del words
+
+  torch.cuda.reset_peak_memory_stats()
+  times = []
+  for _ in range(TRAIN_RUNS):
+    start = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+  mem = torch.cuda.max_memory_allocated()
+  ms = statistics.median(times)
+  holder = [state]
+
+  def one_step():
+    holder[0], _ = step(holder[0], batch)
+
+  log_profile("h7 train-gt", device_profile(torch, one_step), ms,
+              what="step")
+  gt_ms = statistics.median(gt_wall)
+  log(f"h7 train-gt: GT (voxelize + OR + phased_gt) {gt_ms:.3f} ms on the "
+      f"host clock (median of 5), {split['sum_ms']:.3f} ms of device time "
+      f"= {split['sum_ms'] / ms:.4f} of the step; phase loss vs plain loss "
+      f"{phase_loss_rel:.2e} relative")
+  log(f"h7 train-gt: over {TRAIN_RUNS} steps median {ms:.3f} ms (min "
+      f"{min(times):.3f}, max {max(times):.3f}) per batch of {BATCH} = "
+      f"{BATCH * 1e3 / ms:.2f} training scenes/s; first step {first_s:.3f} "
+      f"s; peak memory {mem / 2**30:.2f} GiB")
+  split.update(gt_wall_ms=gt_ms, step_ms=ms)
+  return launches, k3, k4, split
+
+
+def compare_with_plain_loss(torch, CoreNet, config, state, step, batch,
+                            packed_or, v2x):
+  """The phase-loss step's loss on the triangle batch against a model
+  without phase_output (same weights and statistics) on the grid of the
+  same GT: within 1e-6 relative (only the order of the sums differs).
+  The state is restored after."""
+  from corenet_tpu_torch.train.state import create_optimizer
+  from corenet_tpu_torch.train.step import make_train_step
+  from corenet_tpu_torch.voxel.packed import unpack_grid
+  model, optimizer = state.model, state.optimizer
+  snap_model = {k: v.clone() for k, v in model.state_dict().items()}
+  snap_opt = copy.deepcopy(optimizer.state_dict())
+  plain_model = CoreNet(config).to(batch["image"].device)
+  plain_model.load_state_dict(snap_model)
+  plain_step = make_train_step(
+      plain_model, create_optimizer(plain_model.parameters()), "FG_BG",
+      OUTPUT_RES)
+  grid_batch = {"image": batch["image"], "camera": batch["camera"],
+                "v2x": v2x, "grid_offset": batch["grid_offset"],
+                "grid": unpack_grid(packed_or, dtype=torch.uint8)}
+  torch.backends.cudnn.deterministic = True
+  try:
+    _, phase_metrics = step(state, batch)
+    _, plain_metrics = plain_step(state, grid_batch)
+  finally:
+    torch.backends.cudnn.deterministic = False
+    model.load_state_dict(snap_model)
+    optimizer.load_state_dict(snap_opt)
+  phase_loss = float(phase_metrics["loss"])
+  plain_loss = float(plain_metrics["loss"])
+  rel = abs(phase_loss - plain_loss) / abs(plain_loss)
+  if rel > 1e-6:
+    raise AssertionError(f"phase loss {phase_loss} and plain loss "
+                         f"{plain_loss} differ by {rel} relative")
+  log(f"h7 train-gt: the phase loss {phase_loss:.7f} equals the plain loss "
+      f"{plain_loss:.7f} on the same GT ({rel:.2e} relative; tolerance "
+      "1e-6)")
+  return rel
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -617,7 +1020,9 @@ def main() -> int:
   from corenet_tpu_torch.models import skip
   from corenet_tpu_torch.models.corenet import (
       CoreNet, CoreNetConfig, DecoderConfig)
+  from corenet_tpu_torch.ops import block_scatter as scatter
   from corenet_tpu_torch.ops import fgbg_loss as fgbg
+  from corenet_tpu_torch.ops import phased_gt as phased
   from corenet_tpu_torch.ops import skip_gather as op
   from corenet_tpu_torch.train.step import compute_v2s
 
@@ -782,6 +1187,12 @@ def main() -> int:
   torch.cuda.empty_cache()
   train_card_against_cpu(torch, CoreNet, CoreNetConfig, DecoderConfig,
                          image, camera, offsets, dev)
+  torch.cuda.empty_cache()
+
+  # 6. Training on ground truth voxelized in the step, phase loss, h7.
+  gt_launches, k3_row, k4_row, gt_split = train_gt_h7(
+      torch, (op, fgbg, scatter, phased), CoreNet,
+      CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)), image, camera, dev)
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -837,12 +1248,27 @@ def main() -> int:
       "timing": entry["timing"],
       "shapes": loss_rows,
   }
+  gt_entries = [
+      {"name": name, "route": "cuda",
+       "source": f"corenet_tpu_torch/csrc/{source}.cu",
+       "replaces": replaces, "launches": launches,
+       **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms")},
+       "bound_by": "bytes", "library_ms": None, "library_call": None,
+       "timing": entry["timing"], "shapes": [row]}
+      for name, source, replaces, launches, row in (
+          ("block_scatter_or", "block_scatter",
+           "corenet_tpu/ops/block_scatter.py:219", gt_launches[3], k3_row),
+          ("phased_gt", "phased_gt", "corenet_tpu/ops/phased_gt.py:128",
+           gt_launches[4], k4_row))]
+  gt_entries[0]["gt_split"] = gt_split
   log(f"h7 scenes/s {BATCH * 1e3 / h7_ms:.3f}; y1 scenes/s "
       f"{BATCH * 1e3 / y1_ms:.3f} (median of {SERVE_RUNS} forwards); h7 "
-      f"training scenes/s {BATCH * 1e3 / train_ms:.3f} (median of "
-      f"{TRAIN_RUNS} steps)")
+      f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
+      f"{BATCH * 1e3 / gt_split['step_ms']:.3f} on GT voxelized in the step "
+      f"(medians of {TRAIN_RUNS} steps)")
   log(smi)
-  log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry]}))
+  log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,
       "count": torch.cuda.device_count()}}))

@@ -47,12 +47,18 @@ class CoreNet(nn.Module):
   package's `apply(..., train=True)`: every BatchRenorm, the encoder's
   included, normalizes with batch statistics and updates its running
   statistics; `model.eval()` is `train=False`.
+
+  phase_output (last_upscale_factor 2): the logits come phase-major,
+  [B, D/2, H/2, W/2, 8·C] (models/decoder.py), for the phase-loss
+  training step. A model with and one without it load the same
+  state_dict.
   """
 
-  def __init__(self, config: CoreNetConfig,
+  def __init__(self, config: CoreNetConfig, phase_output: bool = False,
                device: Optional[torch.device] = None):
     super().__init__()
     self.config = config
+    self.phase_output = phase_output
     dc = config.decoder
     self.encoder = ResNet50FeatureExtractor(device=device)
     self.decoder = ReconstructionDecoder(
@@ -61,6 +67,7 @@ class CoreNet(nn.Module):
         last_upscale_factor=dc.last_upscale_factor,
         latent_channels=dc.latent_channels,
         skip_fraction=dc.skip_fraction,
+        phase_output=phase_output,
         device=device)
 
   def reset_parameters(self, generator: torch.Generator) -> None:

@@ -7,7 +7,11 @@ five {ReLU, BN, Conv3d, ReLU, BN, ConvTranspose3d} towers doubling the
 resolution, with ray-traced skips concatenating round(C · skip_fraction)
 channels sampled from ResNet stages 5/5/4/3/2 after stages 2..5 (stage 1's
 skip is disabled, as in the reference), and a last ConvTranspose3d with
-stride last_upscale_factor to the output channels.
+stride last_upscale_factor to the output channels. With `phase_output`
+(last_upscale_factor 2) that last layer's output stays phase-major,
+[B, D/2, H/2, W/2, 8·C] in channel order (pz, py, px, c), which the
+phase-loss training step pairs with phase-major labels; the parameters
+are the same.
 
 Module names follow the flax scopes (`stage_0`, `stage_1_bn`, `stage_2_c`,
 `rt_skip_5.compress_channels`, …). Activations are (N, C, D, H, W) inside;
@@ -49,8 +53,13 @@ class ReconstructionDecoder(nn.Module):
   def __init__(self, resolution: Tuple[int, int, int],
                num_output_channels: int, last_upscale_factor: int = 2,
                latent_channels: int = 64, skip_fraction: float = 0.75,
+               phase_output: bool = False,
                device: Optional[torch.device] = None):
     super().__init__()
+    if phase_output and last_upscale_factor != 2:
+      raise ValueError("phase_output needs last_upscale_factor 2, got "
+                       f"{last_upscale_factor}")
+    self.phase_output = phase_output
     self.resolution = tuple(resolution)
     div = 16 * last_upscale_factor
     if any(v % div for v in self.resolution):
@@ -85,7 +94,8 @@ class ReconstructionDecoder(nn.Module):
                       BatchRenorm(conv_c, device=device))
       self.add_module(f"stage_{stage}_t", layers.ConvTranspose(
           conv_c, t_out, t_k, ndim=3, stride=stride, padding=t_pad,
-          output_padding=t_op, device=device))
+          output_padding=t_op, phase_output=phase_output and stage == 6,
+          device=device))
       channels = t_out
       layer_res = tuple(v * stride for v in layer_res)
       if stage in self.skip_channels:
@@ -140,4 +150,6 @@ class ReconstructionDecoder(nn.Module):
         x = self._skip(x, getattr(imf, field), stage,
                        voxel_projection_matrix, voxel_sample_locations)
     x = self._tower(x, 6)
+    if self.phase_output:
+      return x  # [B, D/2, H/2, W/2, 8·C], phase-major, float32
     return x.permute(0, 2, 3, 4, 1).float()

@@ -95,17 +95,28 @@ class Conv(nn.Module):
 
 class ConvTranspose(nn.Module):
   """N-d transposed convolution with torch ConvTransposeNd semantics:
-  out = (in − 1)·stride − 2·padding + kernel + output_padding."""
+  out = (in − 1)·stride − 2·padding + kernel + output_padding.
+
+  phase_output (3D, stride 2): return the output channel-last in
+  phase-major layout, [B, D/2, H/2, W/2, 8·F] with channel order
+  (pz, py, px, f), where fine index = 2·coarse + phase per axis, instead
+  of (B, F, D, H, W). The same parameters; the JAX package's layout for
+  consumers that do not depend on voxel order (the training loss)."""
 
   def __init__(self, in_features: int, features: int,
                kernel_size: IntOrTuple, ndim: int, stride: IntOrTuple = 1,
                padding: IntOrTuple = 0, output_padding: IntOrTuple = 0,
+               phase_output: bool = False,
                device: Optional[torch.device] = None):
     super().__init__()
     if ndim not in (2, 3):
       raise ValueError(f"ndim must be 2 or 3, got {ndim}")
+    if phase_output and (ndim != 3 or _tuple(stride, ndim) != (2, 2, 2)):
+      raise ValueError("phase_output needs a 3D transposed convolution of "
+                       "stride 2")
     k = _tuple(kernel_size, ndim)
     self.ndim = ndim
+    self.phase_output = phase_output
     self.stride = _tuple(stride, ndim)
     self.padding = _tuple(padding, ndim)
     self.output_padding = _tuple(output_padding, ndim)
@@ -122,8 +133,14 @@ class ConvTranspose(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     conv_t = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
-    return conv_t(x, self.weight, self.bias, self.stride, self.padding,
-                  self.output_padding)
+    y = conv_t(x, self.weight, self.bias, self.stride, self.padding,
+               self.output_padding)
+    if not self.phase_output:
+      return y
+    b, f, d, h, w = y.shape
+    y = y.reshape(b, f, d // 2, 2, h // 2, 2, w // 2, 2)
+    return y.permute(0, 2, 4, 6, 3, 5, 7, 1).reshape(
+        b, d // 2, h // 2, w // 2, 8 * f)
 
 
 class Linear(nn.Module):

@@ -7,7 +7,10 @@ softmax cross-entropy (xent), and the (1 + iou)(1 + xent) products used
 for SEMANTIC training.
 
 Shapes: gt_volume int or uint8 [B, D, H, W]; logits float32
-[B, D, H, W, C]; weights (optional) float32 [B, D, H, W]. With two
+[B, D, H, W, C]; weights (optional) float32 [B, D, H, W]. The phase-loss
+step passes phase-major labels [B, D/2, H/2, (W/2)·8] with its logits
+viewed as [B, D/2, H/2, (W/2)·8, C]: the losses do not depend on voxel
+order. With two
 classes and no weights, iou_fgbg reduces through ops/fgbg_loss.py (a CUDA
 kernel on the card); everything else is plain tensor code.
 """

@@ -1,2 +1,2 @@
-"""The training state, the training step (on batches with their
-ground-truth grid) and the eval forward."""
+"""The training state, the on-device ground truth, the training step and
+the eval forward."""

@@ -14,12 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from corenet_tpu_torch.data.batching import (
+    VOXELIZE_WINDOW_PIXELS, _pad_to_bucket, subdivide_triangles)
 from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
+from corenet_tpu_torch.ops import block_scatter as scatter
 from corenet_tpu_torch.ops import fgbg_loss as fgbg
+from corenet_tpu_torch.ops import phased_gt as phased
 from corenet_tpu_torch.ops import skip_gather as op
+from corenet_tpu_torch.train import gt
 from corenet_tpu_torch.train.state import create_train_state
 from corenet_tpu_torch.train.step import make_train_step
+from corenet_tpu_torch.voxel.packed import pack_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +204,130 @@ def test_corenet_on_card_matches_cpu(device, monkeypatch):
     assert op.launch_count == before + 4
   torch.testing.assert_close(got.cpu(), ref, rtol=2e-3,
                              atol=2e-3 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("b,t,meshes,hw,nw", [(2, 300, 2, 32, 1),
+                                              (2, 300, 2, 32, 2),
+                                              (4, 16384, 2, 128, 4)])
+def test_block_scatter_kernel_equals_plain_version(device, b, t, meshes, hw,
+                                                   nw):
+  rng = np.random.default_rng(t + nw)
+  slot = rng.integers(0, meshes, (b, t))
+  oy = rng.integers(0, hw - 7, (b, t))
+  ox = rng.integers(0, hw - 7, (b, t))
+  origins = ((slot * hw + oy) * hw + ox).astype(np.int32)
+  origins[:, 10:20] = origins[:, 9:10]  # a run of one origin
+  origins[:, 30] = (meshes * hw - 8) * hw + hw - 8  # the last corner
+  origins[:, 31] = hw - 7  # its block would leave the grid: skipped
+  origins[rng.random((b, t)) < 0.25] = -1
+  pw = rng.integers(-2 ** 31, 2 ** 31, (b, t, 8, 8 * nw), dtype=np.int64)
+  pw[rng.random(pw.shape) < 0.7] = 0
+  origins = torch.from_numpy(origins).to(device)
+  pw = torch.from_numpy(pw.astype(np.int32)).to(device)
+  before = scatter.launch_count
+  got = scatter.block_scatter_or(origins, pw, meshes=meshes, h=hw, w=hw,
+                                 nw=nw)
+  again = scatter.block_scatter_or(origins, pw, meshes=meshes, h=hw, w=hw,
+                                   nw=nw)
+  torch.cuda.synchronize()
+  assert scatter.launch_count == before + 2
+  want = scatter.block_scatter_or_reference(origins, pw, meshes=meshes,
+                                            h=hw, w=hw, nw=nw)
+  assert torch.equal(got, want) and torch.equal(again, got)
+  assert float((got != 0).float().mean()) > 0.05
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 32, 48, 64),
+                                   (4, 128, 128, 128)])
+def test_phased_gt_kernel_equals_plain_version(device, s, shape):
+  gen = torch.Generator().manual_seed(sum(shape) + s)
+  grid = (torch.rand(shape, generator=gen) < 0.4).to(device)
+  packed = pack_grid(grid)
+  before = phased.launch_count
+  got = phased.phased_gt(packed, s)
+  torch.cuda.synchronize()
+  assert phased.launch_count == before + 1
+  assert got.dtype == torch.uint8
+  assert torch.equal(got, phased.phased_gt_reference(packed, s))
+
+
+@pytest.mark.parametrize("s,shape", [(2, (2, 32, 10, 6)),
+                                     (4, (1, 64, 12, 20))])
+def test_phased_gt_kernel_odd_cell_counts(device, s, shape):
+  gen = torch.Generator().manual_seed(s)
+  grid = (torch.rand(shape, generator=gen) < 0.5).to(device)
+  packed = pack_grid(grid)
+  got = phased.phased_gt(packed, s)
+  assert torch.equal(got, phased.phased_gt_reference(packed, s))
+
+
+def _cube_batch(res, batch=2):
+  """Triangle batch: a subdivided cube shell per scene, shifted per
+  scene, plus a second, empty mesh slot."""
+  max_edge = (VOXELIZE_WINDOW_PIXELS - 4) / 8 / res
+  lo, hi = 0.3, 0.7
+  corners = np.array([[lo, lo, lo], [hi, lo, lo], [hi, hi, lo],
+                      [lo, hi, lo], [lo, lo, hi], [hi, lo, hi],
+                      [hi, hi, hi], [lo, hi, hi]], np.float32)
+  faces = [(0, 2, 1), (0, 3, 2), (4, 5, 6), (4, 6, 7), (0, 1, 5), (0, 5, 4),
+           (2, 3, 7), (2, 7, 6), (1, 2, 6), (1, 6, 5), (0, 4, 7), (0, 7, 3)]
+  tris = subdivide_triangles(corners[np.array(faces)], max_edge)
+  t = _pad_to_bucket(len(tris))
+  triangles = np.zeros((batch, t, 3, 3), np.float32)
+  for i in range(batch):
+    triangles[i, :len(tris)] = tris + np.float32(0.02 * i)
+  valid = np.zeros((batch, t), bool)
+  valid[:, :len(tris)] = True
+  return {"triangles": torch.from_numpy(triangles),
+          "tri_mesh_slot": torch.zeros((batch, t), dtype=torch.int32),
+          "tri_valid": torch.from_numpy(valid),
+          "mesh_labels": torch.tensor([[1, 0]] * batch, dtype=torch.int32),
+          "grid_offset": torch.full((batch, 3), 0.5)}
+
+
+def test_packed_gt_on_card_equals_cpu(device):
+  batch = _cube_batch(64)
+  kwargs = dict(resolution=(64, 64, 64), image_resolution_multiplier=8,
+                conservative_rasterization=False,
+                max_bbox_pixels=VOXELIZE_WINDOW_PIXELS)
+  keys = ("triangles", "tri_mesh_slot", "tri_valid", "mesh_labels",
+          "grid_offset")
+  want, _ = gt.voxelize_batch_packed_fgbg(*(batch[k] for k in keys),
+                                          **kwargs)
+  before = scatter.launch_count
+  got, v2x = gt.voxelize_batch_packed_fgbg(
+      *(batch[k].to(device) for k in keys), **kwargs)
+  assert scatter.launch_count == before + 1
+  assert torch.equal(got.cpu(), want)
+  assert v2x.device == got.device
+
+
+def test_phase_loss_train_step_on_card_matches_cpu(device, monkeypatch):
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+  rng = np.random.default_rng(0)
+  batch = _cube_batch(32)
+  batch["image"] = torch.from_numpy(
+      rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8))
+  batch["camera"] = torch.diag(torch.tensor([1.8, 1.8, 1.8, 1.0])).repeat(
+      2, 1, 1)
+  batch["camera"][:, :3, 3] = -0.9
+  kwargs = dict(image_resolution_multiplier=8,
+                conservative_rasterization=False,
+                max_bbox_pixels=VOXELIZE_WINDOW_PIXELS)
+  losses = []
+  for dev in ("cpu", device):
+    model = CoreNet(CoreNetConfig(DecoderConfig((32, 32, 32), 2)),
+                    phase_output=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = create_train_state(model, device=dev)
+    step = make_train_step(state.model, state.optimizer, "FG_BG",
+                           (32, 32, 32), voxelization_kwargs=kwargs)
+    counts = (scatter.launch_count, phased.launch_count, op.launch_count,
+              op.backward_launch_count, fgbg.launch_count)
+    state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
+    losses.append(float(metrics["loss"]))
+  after = (scatter.launch_count, phased.launch_count, op.launch_count,
+           op.backward_launch_count, fgbg.launch_count)
+  assert tuple(a - c for a, c in zip(after, counts)) == (1, 1, 4, 4, 1)
+  assert losses[1] == pytest.approx(losses[0], rel=1e-4)
