@@ -17,10 +17,15 @@ Phases; the run fails at the first that fails:
               serving paths' shapes (h7: batch 4 at 128³; y1: 64 offsets ×
               batch 4 as one batch of 256 at 32³) with the indices those
               paths compute (torch.equal); its backward at h7 training's
-              (the h7 indices, batch 4), f32 and bf16, against the float64
-              scatter-add within 1e-5 · Σ|dout| per cell (plus one bf16
-              ulp); fgbg_sums at [4, 128³] with int32, uint8 and float32
-              labels, within 1e-6 relative.
+              (the h7 indices, batch 4), f32 and bf16, with dout in the
+              step's layout (the channel slice of the decoder's
+              concatenated gradient, as autograd hands it over) and
+              contiguous, against the float64 scatter-add within
+              1e-5 · Σ|dout| per cell (plus one bf16 ulp), with the run
+              lengths along z and the kernel's flushes counted from the
+              indices and the copy to contiguous timed; fgbg_sums at
+              [4, 128³] with int32, uint8 and float32 labels, within 1e-6
+              relative.
   3. serving  h7: 128³ output, 2 classes, batch 4, 256² images, random
               weights from a seed, through super_resolution_from_model.
               Checks the PMF (shape, finite, sums to 1), that each forward
@@ -107,6 +112,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # The decoder's skips: stage → (native resolution / layer resolution,
 # padded map H2 = W2 at 256² images, channels).
 SKIPS = {2: (16, 10, 96), 3: (8, 18, 48), 4: (4, 34, 24), 5: (2, 66, 12)}
+# The tower's channels that the decoder concatenates before each skip's.
+TOWER_CHANNELS = {2: 128, 3: 64, 4: 32, 5: 16}
 
 
 def log(*args):
@@ -309,12 +316,32 @@ def bf16_ulp(torch, x):
   return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def column_runs(torch, op, px, py, h2, grid, c):
+  """From the indices: the mean run of equal pixels along z in a depth
+  column, the backward kernel's chunk along z, and its flushes (vector
+  atomics): one per run, a run also ending where a chunk ends, for each
+  group of channels."""
+  b = px.shape[0]
+  depth, cols = op.columns(px.shape[1], grid)
+  pixel = (py * h2 + px).reshape(b, depth, cols)
+  starts = torch.ones_like(pixel, dtype=torch.bool)
+  starts[:, 1:] = pixel[:, 1:] != pixel[:, :-1]
+  groups = c // op.channel_vector(c)
+  chunk = op.z_chunk(depth)
+  mean_run = pixel.numel() / int(starts.sum())
+  starts[:, ::chunk] = True
+  return mean_run, chunk, int(starts.sum()) * groups
+
+
 def skip_backward_rows(torch, op, v2s, sample, res, gen):
   """skip_gather's backward at h7 training's shapes (batch 4, the four
-  skips, the path's own indices), f32 and bf16: the kernel and the plain
-  version against the float64 scatter-add, and their times. Also times
-  the kernel with the voxels that land on the pad ring moved one pixel
-  inwards, which shows what the ring's hot cells cost."""
+  skips, the path's own indices), f32 and bf16, in two layouts of dout:
+  the step's (the skip's channel slice of the [B, C_tot, D, H, W]
+  gradient of the decoder's concatenation, as autograd hands it over) and
+  contiguous. The kernel in both and the plain version against the
+  float64 scatter-add; their times, the time of the copy to contiguous
+  that the first version needed and of zeroing the accumulator; the run
+  lengths and flushes from the indices."""
   from corenet_tpu_torch.models import skip
   dev = v2s.device
   b = v2s.shape[0]
@@ -322,18 +349,27 @@ def skip_backward_rows(torch, op, v2s, sample, res, gen):
   rows = []
   for stage, (div, h2, c) in SKIPS.items():
     layer = res // div
+    grid = (layer,) * 3
     matrix = v2s * torch.tensor([div, div, div, 1.0], device=dev)
-    px, py = skip.voxel_pixel_indices(matrix, sample, (layer,) * 3,
-                                      h2 - 2, h2 - 2)
+    px, py = skip.voxel_pixel_indices(matrix, sample, grid, h2 - 2, h2 - 2)
     n = px.shape[1]
     on_pad = (px == 0) | (px == h2 - 1) | (py == 0) | (py == h2 - 1)
-    inner_px = px.clamp(1, h2 - 2).contiguous()
-    inner_py = py.clamp(1, h2 - 2).contiguous()
     flat = (bidx * h2 * h2 + py.long() * h2 + px.long()).reshape(-1)
     per_pixel = torch.bincount(flat, minlength=b * h2 * h2)
+    mean_run, chunk, flushes = column_runs(torch, op, px, py, h2, grid, c)
+    cx = TOWER_CHANNELS[stage]
     for dtype in (torch.float32, torch.bfloat16):
       dout = torch.randn((b, n, c), generator=gen).to(dev, dtype)
-      got = op.skip_gather_backward(dout, px, py, h2, h2)
+      cat_grad = torch.zeros((b, cx + c) + grid, device=dev, dtype=dtype)
+      cat_grad[:, cx:] = dout.reshape((b,) + grid + (c,)).permute(
+          0, 4, 1, 2, 3)
+      step = cat_grad[:, cx:].permute(0, 2, 3, 4, 1).reshape(b, n, c)
+      if step.stride() != ((cx + c) * n, 1, n):
+        raise AssertionError(f"the step's layout has strides {step.stride()}")
+      got = op.skip_gather_backward(step, px, py, h2, h2,
+                                    grid_resolution=grid)
+      got_contiguous = op.skip_gather_backward(dout, px, py, h2, h2,
+                                               grid_resolution=grid)
       plain = op.skip_gather_backward_reference(dout, px, py, h2, h2)
       ref64 = op.skip_gather_backward_reference(dout.double(), px, py, h2, h2)
       mass = op.skip_gather_backward_reference(dout.double().abs(), px, py,
@@ -342,7 +378,9 @@ def skip_backward_rows(torch, op, v2s, sample, res, gen):
       bound = 1e-5 * mass + 1e-30
       if dtype == torch.bfloat16:
         bound = bound + bf16_ulp(torch, ref64)
-      for what, out in (("kernel", got), ("plain version", plain)):
+      for what, out in (("kernel, step's layout", got),
+                        ("kernel, contiguous", got_contiguous),
+                        ("plain version", plain)):
         excess = float(((out.double() - ref64).abs() - bound).max())
         if excess > 0:
           raise AssertionError(f"skip_gather backward ({what}) exceeds its "
@@ -350,18 +388,30 @@ def skip_backward_rows(torch, op, v2s, sample, res, gen):
       es = dout.element_size()
       nbytes = b * n * (c * es + 8) + b * h2 * h2 * c * es
       dout2d = dout.reshape(b * n, c)
+
+      def kernel(d=step):
+        return op.skip_gather_backward(d, px, py, h2, h2,
+                                       grid_resolution=grid)
+
       row = {
           "stage": stage, "dtype": str(dtype).replace("torch.", ""),
-          "dfmap": [b, h2, h2, c], "n": n, "bytes": nbytes,
+          "dfmap": [b, h2, h2, c], "n": n, "grid": list(grid),
+          "dout_strides": list(step.stride()), "bytes": nbytes,
           "voxels_on_pad_share": float(on_pad.float().mean()),
           "max_voxels_per_pixel": int(per_pixel.max()),
-          "max_abs_err_vs_plain": float((got.float() - plain.float())
-                                        .abs().max()),
-          "ms": device_ms(torch, lambda: op.skip_gather_backward(
-              dout, px, py, h2, h2)),
-          "ms_pad_moved_inwards": device_ms(
-              torch, lambda: op.skip_gather_backward(
-                  dout, inner_px, inner_py, h2, h2)),
+          "mean_run_along_z": mean_run, "z_chunk": chunk,
+          "flushes": flushes,
+          "atomics_first_version": b * n * c // op.channel_vector(c),
+          "max_abs_err_vs_plain": max(
+              float((out.float() - plain.float()).abs().max())
+              for out in (got, got_contiguous)),
+          "ms": device_ms(torch, kernel),
+          "ms_contiguous": device_ms(torch, lambda: kernel(d=dout)),
+          "copy_ms": device_ms(torch, step.contiguous),
+          # The zeroed f32 accumulator every launch starts from: with the
+          # launch itself, the floor of the small skips.
+          "zero_ms": device_ms(torch, lambda: torch.zeros(
+              (b, h2, h2, c), device=dev)),
           "plain_ms": device_ms(
               torch, lambda: op.skip_gather_backward_reference(
                   dout, px, py, h2, h2)),
@@ -377,12 +427,16 @@ def skip_backward_rows(torch, op, v2s, sample, res, gen):
       lib = ("none" if row["library_ms"] is None
              else f"{row['library_ms']:.4f} ms")
       log(f"skip_gather backward stage {stage} {row['dtype']:8s} "
-          f"[{b},{h2},{h2},{c}] N={n}: kernel {row['ms']:.4f} ms (pad "
-          f"voxels moved inwards {row['ms_pad_moved_inwards']:.4f}), plain "
-          f"{row['plain_ms']:.4f} ms, library {lib}, bound "
-          f"{row['bound_ms']:.4f} ms ({nbytes} B); voxels on the pad "
-          f"{row['voxels_on_pad_share']:.4f}, max voxels per pixel "
-          f"{row['max_voxels_per_pixel']}")
+          f"[{b},{h2},{h2},{c}] N={n}: kernel {row['ms']:.4f} ms in the "
+          f"step's layout (contiguous {row['ms_contiguous']:.4f}), copy to "
+          f"contiguous "
+          f"{row['copy_ms']:.4f} ms, zeroing the accumulator "
+          f"{row['zero_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"{lib}, bound {row['bound_ms']:.4f} ms ({nbytes} B); mean run "
+          f"along z {mean_run:.3f}, z chunk {chunk}, flushes {flushes} "
+          f"(first version {row['atomics_first_version']} atomics); voxels "
+          f"on the pad {row['voxels_on_pad_share']:.4f}, max voxels per "
+          f"pixel {row['max_voxels_per_pixel']}")
   return rows
 
 
@@ -446,7 +500,11 @@ def plain_versions(*modules):
   for module in modules:
     for name, plain in PLAIN[module.__name__.rsplit(".", 1)[-1]]:
       saved.append((module, name, getattr(module, name)))
-      setattr(module, name, getattr(module, plain))
+      fn = getattr(module, plain)
+      if name == "skip_gather_backward":
+        # index_add_ takes the voxels in any order: it needs no grid.
+        fn = lambda *args, grid_resolution, plain_fn=fn: plain_fn(*args)
+      setattr(module, name, fn)
   try:
     yield
   finally:
@@ -1081,7 +1139,7 @@ def main() -> int:
       rows = int(torch.unique(bidx * h2 * h2 + py * h2 + px).numel())
       for dtype in (torch.float32, torch.bfloat16):
         fmap = torch.randn((b, h2, h2, c), generator=gen).to(dev, dtype)
-        out = op.skip_gather(fmap, px, py)
+        out = op.skip_gather(fmap, px, py, (layer,) * 3)
         ref = op.skip_gather_reference(fmap, px, py)
         lib = fmap[bidx, py, px]
         torch.cuda.synchronize()
@@ -1096,7 +1154,8 @@ def main() -> int:
             "dtype": str(dtype).replace("torch.", ""),
             "fmap": [b, h2, h2, c], "n": n, "rows_read": rows,
             "bytes": nbytes,
-            "ms": device_ms(torch, lambda: op.skip_gather(fmap, px, py)),
+            "ms": device_ms(torch, lambda: op.skip_gather(
+                fmap, px, py, (layer,) * 3)),
             "plain_ms": device_ms(
                 torch, lambda: op.skip_gather_reference(fmap, px, py)),
             "library_ms": device_ms(torch, lambda: fmap[bidx, py, px]),
@@ -1222,14 +1281,15 @@ def main() -> int:
       "replaces": "corenet_tpu/ops/skip_gather.py:139",
       "launches": train_launches[1],
       "max_abs_err": max(row["max_abs_err_vs_plain"] for row in bwd_rows),
-      # Per h7 training step in float32: the sum over its four skips.
+      # Per h7 training step in float32: the sum over its four skips, the
+      # kernel in the step's layout.
       **{key: sum(row[key] for row in bwd_f32)
-         for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "copy_ms",
+                     "zero_ms", "ms_contiguous", "flushes",
+                     "atomics_first_version")},
       "bound_by": "bytes",
       "library_call": "torch.zeros(...).index_add_(0, flat_index, dout)",
       "timing": entry["timing"],
-      "ms_pad_moved_inwards": sum(row["ms_pad_moved_inwards"]
-                                  for row in bwd_f32),
       "shapes": bwd_rows,
   }
   int32_row = loss_rows[0]

@@ -28,27 +28,48 @@
 // one contiguous burst. The threads of a row read the same index pair,
 // which the L1 serves once. The copy is bit-exact by construction.
 //
-// Backward. By bytes it is the forward reversed (dout read once, the map
-// written once: ~80 MB at h7 in f32), but every element of dout is one
-// f32 atomic add into the map (16.7 M at h7), and voxels that project to
-// the same pixel add into the same addresses. Voxels off the image land on
-// the 1-px ring and voxels behind the camera on pixel (0, 0), so those
-// cells are the hot ones. What bounds it on the card is measured
-// (chip_smoke.py) rather than assumed.
+// Backward. By bytes it is the forward reversed: dout read once, the
+// indices once, the map written once (~80 MB at h7 in f32, ~60 MB of it
+// in the 64^3 skip). What held the first version back was atomics: one
+// vector f32 atomicAdd per (voxel, 4 channels), 3.1 M at the 64^3 skip,
+// piling onto few addresses (a pixel there takes 64 voxels on average and
+// up to 205). The voxels come in (z, y, x) order and the decoder's camera
+// looks along z, so consecutive voxels of one depth column (y, x) often
+// project to the same pixel.
 //
-// Backward design: the wrapper hands in an f32 accumulator [B, H2, W2, C]
-// (the output itself for f32 dout); it is zeroed on the stream, then one
-// thread per (voxel, vector of V <= 4 channels) loads its vector of dout
-// with one coalesced load and adds it into the pixel's channels with one
-// vector f32 atomicAdd (RED.V4/V2, the result is unused), so a warp's
-// adds cover the same contiguous span its load did. V scalar atomics per
-// thread would make each warp instruction touch a V-times wider span of
-// addresses, V times as many instructions; measured 3.3x slower at the
-// 64^3 skip (PERF.md). bf16 dout accumulates in the f32
-// buffer and is rounded to bf16 (nearest even) once, in a second pass, as
-// the TPU kernel accumulated in f32 and cast at the end. The order of the
-// atomic adds varies from run to run, so the result is deterministic only
-// up to f32 summation order: |err| <= ~1e-5 * sum |dout| per cell.
+// Backward design: one thread per (scene, column (y, x), set of up to 12
+// channels, chunk of z). It walks z through its chunk, reads each voxel's
+// pixel, and adds the voxel's channels into f32 sums in registers for as
+// long as the pixel stays the same; when the pixel changes, and at the end
+// of the chunk, it flushes the sums into the pixel's channels with one
+// vector f32 atomicAdd per 4 channels (RED.V4/V2, the result unused). That
+// is one atomic per run of equal pixels instead of one per voxel.
+// Consecutive threads take consecutive columns, and a thread loads its
+// channels one by one at dout's element strides: where dout is
+// channel-major, as autograd hands it over from the decoder's
+// concatenation (element strides (C_tot * N, 1, N)), each channel load of
+// a warp reads 32 consecutive elements. dout may have any strides, so the
+// gradient is never copied before the launch. Voxels without column
+// structure are columns of depth 1: one thread and one atomic per (voxel,
+// 4 channels), still correct.
+//
+// What bounds it at the 64^3 skip (PERF.md): the runs are short (4.2
+// voxels on average: perspective moves a column's pixel every few steps
+// in z), so it still issues 0.85 M vector atomics, 3.7x fewer than one
+// per voxel. In trial kernels on the H100 that are not kept (PERF.md
+// names their runs), plain stores in place of the atomics took as long,
+// while reading the indices again for every channel group cost time: the
+// reads set the pace. Hence up to 12 channels per thread (each voxel's
+// pixel read once), two voxels in flight per thread (more costs registers
+// and so warps), and a chunk of a quarter of the column, chosen by the
+// wrapper (tools/skip_backward_sweep.py times the other chunks).
+//
+// The accumulator is [B, H2, W2, C] f32 (the output itself for f32 dout),
+// zeroed on the stream first. bf16 dout accumulates in it and is rounded
+// to bf16 (nearest even) once, in a second pass, as the TPU kernel
+// accumulated in f32 and cast at the end. The order of the atomic adds
+// varies from run to run, so the result is deterministic only up to f32
+// summation order: |err| <= ~1e-5 * sum |dout| per cell.
 //
 // Indices are clamped into the map, which keeps a bad index from reading
 // or writing outside the allocation; the caller's contract is px in
@@ -99,46 +120,104 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// V consecutive elements of T, loaded as one vector.
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, int V>
+// How a launch walks dout [B, N, C] (element strides sb, sn, sc): N =
+// depth * cols voxels in (z, column) order, `sets` sets of NG groups of V
+// channels, chunks of z_chunk voxels along z.
+struct Walk {
+  long long sb, sn, sc;
+  int n, depth, cols, sets, z_chunk, chunks, h2, w2, c;
+};
+
+// Voxels loaded into registers before any is summed. More keeps more
+// loads in flight per thread but costs registers, and so warps per SM,
+// which was slower in trials on the H100.
+constexpr int kUnroll = 2;
+
+// Adds the sums into the pixel's NG * V channels at dst: one vector atomic
+// per V channels (sm_90's float2/float4 atomicAdd on global memory).
+template <int V, int NG>
+__device__ __forceinline__ void flush(float* dst, const float (&sum)[NG * V]) {
+#pragma unroll
+  for (int q = 0; q < NG; ++q) {
+    const float* s = sum + q * V;
+    if constexpr (V == 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst) + q,
+                make_float4(s[0], s[1], s[2], s[3]));
+    } else if constexpr (V == 2) {
+      atomicAdd(reinterpret_cast<float2*>(dst) + q, make_float2(s[0], s[1]));
+    } else {
+      atomicAdd(dst + q, s[0]);
+    }
+  }
+}
+
+template <typename T, int V, int NG>
 __global__ void __launch_bounds__(kThreads)
-    scatter_add_rows(const T* __restrict__ dout, const int* __restrict__ px,
-                     const int* __restrict__ py, float* __restrict__ acc,
-                     int total, int n, int h2, int w2, int c,
-                     int vecs_per_row) {
+    scatter_add_columns(const T* __restrict__ dout, const int* __restrict__ px,
+                        const int* __restrict__ py, float* __restrict__ acc,
+                        int total, Walk w) {
+  constexpr int kChannels = NG * V;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= total) return;
-  const int row = i / vecs_per_row;  // b * n + voxel
-  const int v = i - row * vecs_per_row;
-  const int b = row / n;
-  const int x = min(max(__ldg(px + row), 0), w2 - 1);
-  const int y = min(max(__ldg(py + row), 0), h2 - 1);
-  const long long pixel = (static_cast<long long>(b) * h2 + y) * w2 + x;
-  const Pack<T, V> in = reinterpret_cast<const Pack<T, V>*>(dout)[i];
-  float* dst = acc + pixel * c + static_cast<long long>(v) * V;
-  // One vector atomic per thread (sm_90's float2/float4 atomicAdd on
-  // global memory): a warp's 32 adds then cover one contiguous run of
-  // 32 * V floats, as its load did.
-  if constexpr (V == 4) {
-    atomicAdd(reinterpret_cast<float4*>(dst),
-              make_float4(to_float(in.v[0]), to_float(in.v[1]),
-                          to_float(in.v[2]), to_float(in.v[3])));
-  } else if constexpr (V == 2) {
-    atomicAdd(reinterpret_cast<float2*>(dst),
-              make_float2(to_float(in.v[0]), to_float(in.v[1])));
-  } else {
-    atomicAdd(dst, to_float(in.v[0]));
+  // i = ((b * chunks + chunk) * sets + set) * cols + column.
+  const int column = i % w.cols;
+  int rest = i / w.cols;
+  const int set = rest % w.sets;
+  rest /= w.sets;
+  const int chunk = rest % w.chunks;
+  const int b = rest / w.chunks;
+  const int z_begin = chunk * w.z_chunk;
+  const int steps = min(w.z_chunk, w.depth - z_begin);
+  const int first = z_begin * w.cols + column;  // voxel within the scene
+  const long long z_stride = static_cast<long long>(w.cols) * w.sn;
+  const T* src = dout + b * w.sb + first * w.sn + set * kChannels * w.sc;
+  const long long scene = static_cast<long long>(b) * w.n + first;
+  const int* ix = px + scene;
+  const int* iy = py + scene;
+  float* dst = acc + static_cast<long long>(b) * w.h2 * w.w2 * w.c +
+               set * kChannels;
+
+  float sum[kChannels];
+#pragma unroll
+  for (int j = 0; j < kChannels; ++j) sum[j] = 0.0f;
+  int current = -1;  // the pixel (y * W2 + x) the sums belong to
+  for (int s = 0; s < steps; s += kUnroll) {
+    int pixel[kUnroll];
+    float v[kUnroll][kChannels];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      pixel[k] = -1;
+      if (s + k < steps) {
+        const int x = min(max(__ldg(ix + k * w.cols), 0), w.w2 - 1);
+        const int y = min(max(__ldg(iy + k * w.cols), 0), w.h2 - 1);
+        pixel[k] = y * w.w2 + x;
+        const T* p = src + k * z_stride;
+#pragma unroll
+        for (int j = 0; j < kChannels; ++j) v[k][j] = to_float(p[j * w.sc]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (pixel[k] < 0) continue;
+      if (pixel[k] != current) {
+        if (current >= 0) flush<V, NG>(dst + current * w.c, sum);
+        current = pixel[k];
+#pragma unroll
+        for (int j = 0; j < kChannels; ++j) sum[j] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kChannels; ++j) sum[j] += v[k][j];
+    }
+    ix += kUnroll * w.cols;
+    iy += kUnroll * w.cols;
+    src += kUnroll * z_stride;
   }
+  if (current >= 0) flush<V, NG>(dst + current * w.c, sum);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -149,36 +228,36 @@ __global__ void __launch_bounds__(kThreads)
   if (i < count) dst[i] = __float2bfloat16_rn(src[i]);
 }
 
-template <typename T, int V>
+template <typename T, int V, int NG>
 cudaError_t launch_scatter(const void* dout, const int* px, const int* py,
-                           float* acc, int total, int n, int h2, int w2, int c,
-                           cudaStream_t stream) {
-  const int blocks = (total + kThreads - 1) / kThreads;
-  scatter_add_rows<T, V><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(dout), px, py, acc, total, n, h2, w2, c, c / V);
+                           float* acc, int b, Walk w, cudaStream_t stream) {
+  w.sets = w.c / (NG * V);
+  const long long total =
+      static_cast<long long>(b) * w.chunks * w.sets * w.cols;
+  if (total > INT_MAX) return cudaErrorInvalidValue;
+  const int t = static_cast<int>(total);
+  const int blocks = (t + kThreads - 1) / kThreads;
+  scatter_add_columns<T, V, NG><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(dout), px, py, acc, t, w);
   return cudaGetLastError();
 }
 
+// V channels per vector atomic: the widest of 4, 2, 1 that divides C. A
+// thread takes 3 groups of 4 channels where C allows, so that it reads
+// each voxel's pixel once for 12 channels (the h7 skips have 12 to 96).
 template <typename T>
 cudaError_t scatter(const void* dout, const int* px, const int* py,
-                    float* acc, long long rows, int n, int h2, int w2, int c,
-                    cudaStream_t stream) {
-  int vec = 4;
-  while (vec > 1 && (c % vec != 0 || !aligned(dout, vec * sizeof(T)) ||
-                     !aligned(acc, vec * sizeof(float)))) {
-    vec /= 2;
+                    float* acc, int b, const Walk& w, cudaStream_t stream) {
+  if (w.c % 12 == 0 && aligned(acc, 4 * sizeof(float))) {
+    return launch_scatter<T, 4, 3>(dout, px, py, acc, b, w, stream);
   }
-  const long long total = rows * (c / vec);
-  if (total > INT_MAX) return cudaErrorInvalidValue;
-  const int t = static_cast<int>(total);
-  switch (vec) {
-    case 4:
-      return launch_scatter<T, 4>(dout, px, py, acc, t, n, h2, w2, c, stream);
-    case 2:
-      return launch_scatter<T, 2>(dout, px, py, acc, t, n, h2, w2, c, stream);
-    default:
-      return launch_scatter<T, 1>(dout, px, py, acc, t, n, h2, w2, c, stream);
+  if (w.c % 4 == 0 && aligned(acc, 4 * sizeof(float))) {
+    return launch_scatter<T, 4, 1>(dout, px, py, acc, b, w, stream);
   }
+  if (w.c % 2 == 0 && aligned(acc, 2 * sizeof(float))) {
+    return launch_scatter<T, 2, 1>(dout, px, py, acc, b, w, stream);
+  }
+  return launch_scatter<T, 1, 1>(dout, px, py, acc, b, w, stream);
 }
 
 }  // namespace
@@ -222,26 +301,33 @@ int skip_gather_fwd(const void* fmap, const int* px, const int* py,
   }
 }
 
-// Scatter-adds b * n rows of c elements of dout (f32 when elem_bytes is 4,
-// bf16 when 2) into dfmap [b, h2, w2, c] of dout's type, through the f32
-// accumulator acc of the same shape, which may be dfmap itself for f32.
+// Scatter-adds dout [b, n, c] (f32 when elem_bytes is 4, bf16 when 2;
+// element strides stride_b, stride_n, stride_c) into dfmap [b, h2, w2, c]
+// of dout's type, through the f32 accumulator acc of the same shape, which
+// may be dfmap itself for f32. The n voxels are `depth` slices of n / depth
+// columns, (z, column) order; each thread walks z_chunk of them along z.
 // Returns a cudaError_t as int: 0 when every launch succeeded.
 int skip_gather_bwd(const void* dout, const int* px, const int* py,
                     float* acc, void* dfmap, int b, int n, int h2, int w2,
-                    int c, int elem_bytes, void* stream) {
-  if (b <= 0 || n <= 0 || h2 <= 0 || w2 <= 0 || c <= 0 ||
+                    int c, long long stride_b, long long stride_n,
+                    long long stride_c, int depth, int z_chunk,
+                    int elem_bytes, void* stream) {
+  if (b <= 0 || n <= 0 || h2 <= 0 || w2 <= 0 || c <= 0 || depth <= 0 ||
+      n % depth != 0 || z_chunk <= 0 || stride_b < 0 || stride_n < 0 ||
+      stride_c < 0 || static_cast<long long>(h2) * w2 * c > INT_MAX ||
       (elem_bytes != 4 && elem_bytes != 2) ||
       (elem_bytes == 4 && dfmap != acc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Walk w{stride_b, stride_n, stride_c, n, depth, n / depth, 0,
+               z_chunk, (depth + z_chunk - 1) / z_chunk, h2, w2, c};
   const auto s = static_cast<cudaStream_t>(stream);
   const long long cells = static_cast<long long>(b) * h2 * w2 * c;
   cudaError_t err = cudaMemsetAsync(acc, 0, cells * sizeof(float), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(b) * n;
   err = elem_bytes == 4
-            ? scatter<float>(dout, px, py, acc, rows, n, h2, w2, c, s)
-            : scatter<__nv_bfloat16>(dout, px, py, acc, rows, n, h2, w2, c, s);
+            ? scatter<float>(dout, px, py, acc, b, w, s)
+            : scatter<__nv_bfloat16>(dout, px, py, acc, b, w, s);
   if (err != cudaSuccess || elem_bytes == 4) return static_cast<int>(err);
   const long long blocks = (cells + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);

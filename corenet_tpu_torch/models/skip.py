@@ -101,7 +101,8 @@ def sample_grid2d(grid2d: torch.Tensor,
   px, py = voxel_pixel_indices(voxel_projection_matrix,
                                voxel_sample_location, grid_resolution, h, w)
   padded = F.pad(grid2d, (0, 0, 1, 1, 1, 1), value=outside_value)
-  gathered = skip_gather_op.skip_gather(padded.contiguous(), px, py)
+  gathered = skip_gather_op.skip_gather(padded.contiguous(), px, py,
+                                        tuple(grid_resolution))
   return gathered.reshape((b,) + tuple(grid_resolution) + (c,))
 
 

@@ -6,12 +6,14 @@ backward. Both kernels are in `csrc/skip_gather.cu`; its note says what
 bounds them and how they are laid out. `skip_gather` is differentiable in
 the map through `SkipGather`, whose forward is `skip_gather_forward` and
 whose backward is `skip_gather_backward`, a scatter-add with f32
-accumulation; indices get no gradient.
+accumulation that reads the gradient in whatever layout autograd hands
+over; indices get no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -26,11 +28,13 @@ backward_launch_count = 0
 _SIGNATURES = {
     "skip_gather_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p], ctypes.c_int),
-    "skip_gather_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    "skip_gather_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p], ctypes.c_int),
     "skip_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
+GridResolution = Tuple[int, int, int]
 
 
 def skip_gather_reference(fmap_padded: torch.Tensor, px: torch.Tensor,
@@ -118,20 +122,47 @@ def skip_gather_forward(fmap_padded: torch.Tensor, px: torch.Tensor,
   return out
 
 
+def channel_vector(c: int) -> int:
+  """Channels per vector atomic of the backward kernel: the widest of 4,
+  2, 1 that divides C."""
+  return 4 if c % 4 == 0 else 2 if c % 2 == 0 else 1
+
+
+def columns(n: int, grid_resolution: GridResolution) -> Tuple[int, int]:
+  """(depth, columns) of n voxels in (z, y, x) order: (D, H·W) for a
+  (D, H, W) grid. Voxels without column structure are the grid (1, 1, n):
+  every voxel its own column."""
+  d, h, w = grid_resolution
+  if min(d, h, w) <= 0 or d * h * w != n:
+    raise ValueError(f"grid_resolution {tuple(grid_resolution)} does not "
+                     f"hold the {n} voxels")
+  return d, h * w
+
+
+def z_chunk(depth: int) -> int:
+  """Voxels along z that one thread of the backward kernel walks: a
+  quarter of the column. Longer chunks end fewer runs at their ends but
+  leave fewer threads to fill the card; a quarter was the fastest at all
+  four h7 skips on the H100 (PERF.md)."""
+  return max(1, depth // 4)
+
+
 def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
-                         py: torch.Tensor, h2: int, w2: int) -> torch.Tensor:
-  """d fmap_padded [B, H2, W2, C] in dout's dtype from dout [B, N, C]:
-  the CUDA kernel on the current stream for a CUDA input, the plain
-  version for a CPU one."""
+                         py: torch.Tensor, h2: int, w2: int,
+                         grid_resolution: GridResolution) -> torch.Tensor:
+  """d fmap_padded [B, H2, W2, C] in dout's dtype from dout [B, N, C] of
+  any strides: the CUDA kernel on the current stream for a CUDA input, the
+  plain version for a CPU one. `grid_resolution` (D, H, W) says that voxel
+  n is (z·H + y)·W + x, which lets the kernel sum along depth columns;
+  (1, 1, N) for voxels in no such order."""
   if dout.dim() != 3 or dout.dtype not in _DTYPES:
     raise ValueError(f"dout must be float32 or bfloat16 [B, N, C], got "
                      f"{dout.dtype} {tuple(dout.shape)}")
-  if not dout.is_contiguous():
-    raise ValueError("dout must be contiguous")
   b, n, c = dout.shape
   _check_indices(b, dout.device, px, py)
   if px.shape[1] != n:
     raise ValueError(f"dout has {n} voxels, the indices {px.shape[1]}")
+  depth, cols = columns(n, grid_resolution)
   device = dout.device
   if device.type == "cpu":
     return skip_gather_backward_reference(dout, px, py, h2, w2)
@@ -147,7 +178,8 @@ def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.skip_gather_bwd(dout.data_ptr(), px.data_ptr(), py.data_ptr(),
                               acc.data_ptr(), dfmap.data_ptr(), b, n, h2, w2,
-                              c, dout.element_size(), stream)
+                              c, *dout.stride(), depth, z_chunk(depth),
+                              dout.element_size(), stream)
   _raise_on(lib, err, "backward")
   global backward_launch_count
   backward_launch_count += 1
@@ -159,27 +191,36 @@ class SkipGather(torch.autograd.Function):
   module's `skip_gather_forward` / `skip_gather_backward` at call time."""
 
   @staticmethod
-  def forward(ctx, fmap_padded, px, py):
+  def forward(ctx, fmap_padded, px, py, grid_resolution):
     ctx.save_for_backward(px, py)
     ctx.map_hw = tuple(fmap_padded.shape[1:3])
+    ctx.grid_resolution = grid_resolution
     return skip_gather_forward(fmap_padded, px, py)
 
   @staticmethod
   def backward(ctx, dout):
+    # dout comes as autograd gives it, usually a channel slice of the
+    # decoder's concatenated gradient; the kernel reads any strides.
     px, py = ctx.saved_tensors
-    return (skip_gather_backward(dout.contiguous(), px, py, *ctx.map_hw),
-            None, None)
+    return (skip_gather_backward(dout, px, py, *ctx.map_hw,
+                                 grid_resolution=ctx.grid_resolution),
+            None, None, None)
 
 
 def skip_gather(fmap_padded: torch.Tensor,  # [B, H2, W2, C] f32 or bf16
                 px: torch.Tensor,           # [B, N] int32, in [0, W2)
                 py: torch.Tensor,           # [B, N] int32, in [0, H2)
+                grid_resolution: GridResolution,
                 ) -> torch.Tensor:
   """Gathers fmap_padded[b, py, px, :] for each index pair → [B, N, C] in
-  fmap_padded's dtype; differentiable in fmap_padded.
+  fmap_padded's dtype; differentiable in fmap_padded. `grid_resolution`
+  (D, H, W), where the N voxels are a grid in (z, y, x) order, lets the
+  backward kernel sum along depth columns; (1, 1, N) for voxels in no such
+  order.
 
   A CUDA input launches the kernels (forward, and backward when a
   gradient flows) on the current stream, or raises: it never takes the
   plain versions. A CPU input takes the plain versions."""
   _check(fmap_padded, px, py)
-  return SkipGather.apply(fmap_padded, px, py)
+  columns(px.shape[1], grid_resolution)
+  return SkipGather.apply(fmap_padded, px, py, grid_resolution)

@@ -16,6 +16,7 @@ import torch
 
 from corenet_tpu_torch.data.batching import (
     VOXELIZE_WINDOW_PIXELS, _pad_to_bucket, subdivide_triangles)
+from corenet_tpu_torch.models import skip
 from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
 from corenet_tpu_torch.ops import block_scatter as scatter
@@ -24,7 +25,7 @@ from corenet_tpu_torch.ops import phased_gt as phased
 from corenet_tpu_torch.ops import skip_gather as op
 from corenet_tpu_torch.train import gt
 from corenet_tpu_torch.train.state import create_train_state
-from corenet_tpu_torch.train.step import make_train_step
+from corenet_tpu_torch.train.step import compute_v2s, make_train_step
 from corenet_tpu_torch.voxel.packed import pack_grid
 
 pytestmark = pytest.mark.cuda
@@ -33,6 +34,9 @@ pytestmark = pytest.mark.cuda
 # the voxel count per scene.
 H7_SKIPS = [(10, 10, 96, 512), (18, 18, 48, 4096), (34, 34, 24, 32768),
             (66, 66, 12, 262144)]
+# The grid (D, H, W) that each case's voxels form, (z, y, x) order.
+GRIDS = {512: (8, 8, 8), 4096: (16, 16, 16), 32768: (32, 32, 32),
+         262144: (64, 64, 64), 700: (7, 10, 10), 333: (9, 37, 1)}
 
 
 @pytest.fixture
@@ -59,7 +63,7 @@ def test_skip_gather_kernel_equals_plain_version(device, h2, w2, c, n,
   fmap, px, py = _inputs(h2 + n, 4, h2, w2, c, n, device)
   fmap = fmap.to(dtype)
   before = op.launch_count
-  out = op.skip_gather(fmap, px, py)
+  out = op.skip_gather(fmap, px, py, GRIDS[n])
   torch.cuda.synchronize()
   assert op.launch_count == before + 1
   assert out.dtype == dtype and out.shape == (4, n, c)
@@ -73,20 +77,74 @@ def _scatter_bounds(dout, px, py, h2, w2):
   return ref64, s
 
 
+# (h2, w2, c, n, indices): random indices with every fourth voxel on the
+# hot pad cell at every shape; at the h7 shapes also every voxel on one
+# pixel, a pixel that alternates along z, and the h7 path's own indices.
+BACKWARD_CASES = (
+    [s + ("random",) for s in H7_SKIPS + [(18, 18, 48, 700), (9, 7, 5, 333)]]
+    + [s + (kind,) for s in H7_SKIPS
+       for kind in ("one_pixel", "alternating", "h7_path")])
+
+
+def _backward_indices(kind, h2, w2, n, device):
+  grid = GRIDS[n]
+  if kind == "random":
+    _, px, py = _inputs(h2 + n, 4, h2, w2, 1, n, device)
+    # Every fourth voxel reads the hot pad cell (0, 0), as voxels behind
+    # the camera do.
+    px[:, ::4] = 0
+    py[:, ::4] = 0
+    return px, py
+  if kind == "one_pixel":
+    px = torch.full((4, n), w2 // 2, dtype=torch.int32, device=device)
+    return px, torch.full_like(px, h2 // 2)
+  if kind == "alternating":  # two random pixels per column, by parity of z
+    _, px, py = _inputs(n, 4, h2, w2, 1, 2 * n // grid[0], device)
+    z_odd = torch.arange(grid[0], device=device).remainder(2)
+    pick = lambda t: t.reshape(4, 2, -1)[:, z_odd].reshape(4, n).contiguous()
+    return pick(px), pick(py)
+  # The h7 path: the serving camera (f = 1.8 + 0.1 · scene, 1 unit in
+  # front of the [0, 1]³ box) at 128³, the skip at layer resolution D.
+  near, far = 0.5, 3.0
+  a, b = (far + near) / (far - near), -2 * far * near / (far - near)
+  camera = torch.tensor([[[f, 0, 0, -0.5 * f], [0, f, 0, -0.5 * f],
+                          [0, 0, a, a + b], [0, 0, 1, 1.0]]
+                         for f in (1.8, 1.9, 2.0, 2.1)], device=device)
+  v2x = torch.diag(torch.tensor([128.0] * 3 + [1.0])).expand(4, 4, 4)
+  div = 128 // grid[0]
+  matrix = compute_v2s(camera, v2x.to(device)) * torch.tensor(
+      [div, div, div, 1.0], device=device)
+  return skip.voxel_pixel_indices(matrix, torch.full((4, 3), 0.5,
+                                                     device=device),
+                                  grid, h2 - 2, w2 - 2)
+
+
+def _step_layout(dout, grid):
+  """dout [B, N, C] re-laid as autograd hands it to the backward in the
+  decoder: the channel slice of a [B, 16 + C, D, H, W] gradient."""
+  b, n, c = dout.shape
+  big = torch.randn((b, 16 + c) + grid, device=dout.device).to(dout.dtype)
+  big[:, 16:] = dout.reshape((b,) + grid + (c,)).permute(0, 4, 1, 2, 3)
+  return big[:, 16:].permute(0, 2, 3, 4, 1).reshape(b, n, c)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h2,w2,c,n", H7_SKIPS + [(18, 18, 48, 700),
-                                                  (9, 7, 5, 333)])
-def test_skip_gather_backward_kernel_matches_plain_version(device, h2, w2, c,
-                                                           n, dtype):
-  _, px, py = _inputs(h2 + n, 4, h2, w2, c, n, device)
-  # Every fourth voxel reads the hot pad cell (0, 0), as voxels behind the
-  # camera do.
-  px[:, ::4] = 0
-  py[:, ::4] = 0
+@pytest.mark.parametrize("columns", ["grid", "flat"])
+@pytest.mark.parametrize("layout", ["contiguous", "step"])
+@pytest.mark.parametrize("h2,w2,c,n,indices", BACKWARD_CASES)
+def test_skip_gather_backward_kernel_matches_plain_version(
+    device, h2, w2, c, n, indices, layout, columns, dtype):
+  px, py = _backward_indices(indices, h2, w2, n, device)
+  grid = GRIDS[n]
   dout = torch.randn((4, n, c), generator=torch.Generator().manual_seed(n))
   dout = dout.to(device, dtype)
+  if layout == "step":
+    dout = _step_layout(dout, grid)
+    assert dout.stride() == ((16 + c) * n, 1, n)
   before = op.backward_launch_count
-  got = op.skip_gather_backward(dout, px, py, h2, w2)
+  got = op.skip_gather_backward(dout, px, py, h2, w2,
+                                grid_resolution=grid if columns == "grid"
+                                else (1, 1, n))
   torch.cuda.synchronize()
   assert op.backward_launch_count == before + 1
   assert got.dtype == dtype and got.shape == (4, h2, w2, c)
@@ -112,7 +170,7 @@ def test_skip_gather_trains_through_both_kernels(device):
   fmap, px, py = _inputs(0, 2, 10, 10, 8, 64, device)
   fmap.requires_grad_(True)
   fwd, bwd = op.launch_count, op.backward_launch_count
-  out = op.skip_gather(fmap, px, py)
+  out = op.skip_gather(fmap, px, py, (1, 1, 64))
   dout = torch.randn_like(out)
   out.backward(dout)
   torch.cuda.synchronize()

@@ -64,32 +64,36 @@ def test_plain_version_bit_exact_ragged_n(dtype):
   assert np.array_equal(got, ref)
 
 
+# Random indices have no column structure: every voxel its own column.
+FLAT64 = (1, 1, 64)
+
+
 def test_wrapper_takes_plain_version_on_cpu_without_counting():
   fmap, px, py = (torch.from_numpy(a) for a in _inputs(3, 2, 10, 9, 5, 64))
   before = op.launch_count
-  out = op.skip_gather(fmap, px, py)
+  out = op.skip_gather(fmap, px, py, FLAT64)
   assert op.launch_count == before
   assert torch.equal(out, op.skip_gather_reference(fmap, px, py))
   # On the CPU the plain version is differentiable.
   fmap.requires_grad_(True)
-  op.skip_gather(fmap, px, py).sum().backward()
+  op.skip_gather(fmap, px, py, FLAT64).sum().backward()
   assert fmap.grad is not None
 
 
 def test_wrapper_refuses_malformed_inputs():
   fmap, px, py = (torch.from_numpy(a) for a in _inputs(4, 2, 10, 9, 5, 64))
   with pytest.raises(TypeError):
-    op.skip_gather(fmap, px.long(), py)
+    op.skip_gather(fmap, px.long(), py, FLAT64)
   with pytest.raises(TypeError):
-    op.skip_gather(fmap.half(), px, py)
+    op.skip_gather(fmap.half(), px, py, FLAT64)
   with pytest.raises(ValueError):
-    op.skip_gather(fmap, px[:1], py)
+    op.skip_gather(fmap, px[:1], py, FLAT64)
   with pytest.raises(ValueError):
-    op.skip_gather(fmap[0], px, py)
+    op.skip_gather(fmap[0], px, py, FLAT64)
   with pytest.raises(ValueError):
-    op.skip_gather(fmap.transpose(1, 2), px, py)
+    op.skip_gather(fmap.transpose(1, 2), px, py, FLAT64)
   with pytest.raises(ValueError):
-    op.skip_gather(fmap.to("meta"), px.to("meta"), py.to("meta"))
+    op.skip_gather(fmap.to("meta"), px.to("meta"), py.to("meta"), FLAT64)
 
 
 def test_build_command_targets_hopper(monkeypatch, tmp_path):
@@ -151,8 +155,8 @@ def test_gradient_matches_pallas_backward(h2, w2, c, n, dtype):
   ref = np.asarray(ref.astype(jnp.float32), np.float64)
 
   fmap_t = torch.from_numpy(fmap).to(tdt).requires_grad_(True)
-  op.skip_gather(fmap_t, torch.from_numpy(px),
-                 torch.from_numpy(py)).backward(dout)
+  op.skip_gather(fmap_t, torch.from_numpy(px), torch.from_numpy(py),
+                 (1, 1, n)).backward(dout)
   got = fmap_t.grad
   assert got.dtype == tdt and got.shape == (2, h2, w2, c)
   got = got.double().numpy()
@@ -174,11 +178,136 @@ def test_backward_wrapper_takes_plain_version_on_cpu_without_counting():
   fmap, px, py, dout, _, _ = _backward_case(5, 2, 10, 9, 5, 64, "float32")
   px, py = torch.from_numpy(px), torch.from_numpy(py)
   before = (op.launch_count, op.backward_launch_count)
-  got = op.skip_gather_backward(dout, px, py, 10, 9)
+  got = op.skip_gather_backward(dout, px, py, 10, 9, FLAT64)
   assert (op.launch_count, op.backward_launch_count) == before
   assert torch.equal(got, op.skip_gather_backward_reference(dout, px, py, 10,
                                                             9))
   with pytest.raises(ValueError):
-    op.skip_gather_backward(dout[:, :10], px, py, 10, 9)
+    op.skip_gather_backward(dout[:, :10], px, py, 10, 9, FLAT64)
   with pytest.raises(ValueError):
-    op.skip_gather_backward(dout.transpose(0, 1), px, py, 10, 9)
+    op.skip_gather_backward(dout.transpose(0, 1), px, py, 10, 9, FLAT64)
+
+
+# The step's layout: the decoder concatenates the skip's [B, C, D, H, W]
+# view behind the tower's channels (models/decoder.py), so autograd hands
+# SkipGather.backward a channel slice of the concatenation's gradient,
+# [B, N, C] with element strides (C_tot·N, 1, N).
+GRID = (8, 16, 16)
+
+
+def _step_layout(dout, grid, channels_before):
+  """dout [B, N, C] re-laid as the channel slice of a [B, C_tot, D, H, W]
+  gradient whose other channels hold noise."""
+  b, n, c = dout.shape
+  big = torch.randn((b, channels_before + c) + tuple(grid),
+                    generator=torch.Generator().manual_seed(n)).to(dout.dtype)
+  big[:, channels_before:] = dout.reshape((b,) + tuple(grid) + (c,)).permute(
+      0, 4, 1, 2, 3)
+  strided = big[:, channels_before:].permute(0, 2, 3, 4, 1).reshape(b, n, c)
+  assert strided.stride() == ((channels_before + c) * n, 1, n)
+  return big, strided
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_backward_wrapper_takes_strided_gradient(dtype):
+  _, px, py, dout, _, _ = _backward_case(6, 2, 18, 18, 48, 2048, dtype)
+  px, py = torch.from_numpy(px), torch.from_numpy(py)
+  _, strided = _step_layout(dout, GRID, 64)
+  assert not strided.is_contiguous()
+  got = op.skip_gather_backward(strided, px, py, 18, 18,
+                                grid_resolution=GRID)
+  want = op.skip_gather_backward(dout, px, py, 18, 18, grid_resolution=GRID)
+  assert got.dtype == dout.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("h2,w2,c", H7_SKIP_SHAPES)
+def test_gradient_in_step_layout_matches_pallas_backward(h2, w2, c, dtype):
+  n = GRID[0] * GRID[1] * GRID[2]
+  fmap, px, py, dout, jdt, tdt = _backward_case(3 * h2 + c, 2, h2, w2, c, n,
+                                                dtype)
+  _, vjp = jax.vjp(
+      lambda f: jax_skip_gather(f, jnp.asarray(px), jnp.asarray(py),
+                                interpret=True), jnp.asarray(fmap, jdt))
+  (ref,) = vjp(jnp.asarray(dout.float().numpy(), jdt))
+  ref = np.asarray(ref.astype(jnp.float32), np.float64)
+
+  fmap_t = torch.from_numpy(fmap).to(tdt).requires_grad_(True)
+  out = op.skip_gather(fmap_t, torch.from_numpy(px), torch.from_numpy(py),
+                       grid_resolution=GRID)
+  sampled = out.reshape((2,) + GRID + (c,)).permute(0, 4, 1, 2, 3)
+  tower = torch.zeros((2, 16) + GRID, dtype=tdt)
+  cotangent, _ = _step_layout(dout, GRID, 16)
+  torch.cat([tower, sampled], dim=1).backward(cotangent)
+  got = fmap_t.grad
+  assert got.dtype == tdt and got.shape == (2, h2, w2, c)
+  got = got.double().numpy()
+
+  d = dout.double().numpy()
+  exact = _scatter64(d, px, py, h2, w2)
+  bound = 1e-5 * _scatter64(np.abs(d), px, py, h2, w2) + 1e-30
+  if dtype == "bfloat16":
+    bound = bound + _bf16_ulp(exact)
+  for result in (got, ref):
+    assert (np.abs(result - exact) <= bound).all()
+  assert (np.abs(got - ref) <= 2 * bound).all()
+
+
+def test_skip_backward_receives_the_gradient_uncopied(monkeypatch):
+  """A SampleGrid2d, the decoder's concatenation and a 3D conv at 16³: the
+  backward wrapper gets the non-contiguous channel slice, and the map's
+  gradient equals the one through a contiguous copy."""
+  from corenet_tpu_torch.models import skip
+  grid = (16, 16, 16)
+  gen = torch.Generator().manual_seed(0)
+  module = skip.SampleGrid2d(8, 12, grid)
+  conv = torch.nn.Conv3d(28, 4, 3, padding=1)
+  with torch.no_grad():
+    for p in list(module.parameters()) + list(conv.parameters()):
+      p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+  f, near, far = 1.8, 0.5, 3.0
+  a, bb = (far + near) / (far - near), -2 * far * near / (far - near)
+  camera = torch.tensor([[f, 0, 0, -0.5 * f], [0, f, 0, -0.5 * f],
+                         [0, 0, a, a + bb], [0, 0, 1, 1.0]])
+  matrix = (camera @ torch.diag(torch.tensor([1 / 16] * 3 + [1.0]))).expand(
+      2, 4, 4)
+  offsets = torch.full((2, 3), 0.5)
+  grid2d = torch.randn((2, 8, 8, 8), generator=gen)
+  tower = torch.randn((2, 16) + grid, generator=gen)
+  kernel_wrapper = op.skip_gather_backward
+
+  def map_gradient(copy_first):
+    received = []
+
+    def spy(dout, *args, **kwargs):
+      received.append((dout.is_contiguous(), dout.stride(),
+                       kwargs.get("grid_resolution")))
+      return kernel_wrapper(dout.contiguous() if copy_first else dout, *args,
+                            **kwargs)
+
+    monkeypatch.setattr(op, "skip_gather_backward", spy)
+    x = grid2d.clone().requires_grad_(True)
+    sampled = module(x, matrix, offsets)
+    conv(torch.cat([tower, sampled], dim=1)).square().sum().backward()
+    return x.grad, received
+
+  got, received = map_gradient(copy_first=False)
+  want, _ = map_gradient(copy_first=True)
+  n = 16 ** 3
+  assert received == [(False, (28 * n, 1, n), grid)]
+  assert torch.equal(got, want)
+
+
+def test_backward_columns_and_chunks():
+  assert op.columns(4096, (16, 16, 16)) == (16, 256)
+  assert op.columns(4096, (1, 1, 4096)) == (1, 4096)
+  with pytest.raises(ValueError):
+    op.columns(4096, (16, 16, 15))
+  fmap, px, py = (torch.from_numpy(a) for a in _inputs(4, 2, 10, 9, 5, 64))
+  with pytest.raises(ValueError):
+    op.skip_gather(fmap, px, py, grid_resolution=(4, 4, 2))
+  with pytest.raises(ValueError):
+    op.skip_gather_backward(torch.zeros((2, 64, 5)), px, py, 10, 9,
+                            grid_resolution=(4, 4, 5))
+  assert [op.channel_vector(c) for c in (12, 6, 5)] == [4, 2, 1]
+  assert [op.z_chunk(d) for d in (1, 3, 8, 16, 32, 64)] == [1, 1, 2, 4, 8, 16]
