@@ -45,7 +45,8 @@ Phases; the run fails at the first that fails:
               create_train_state and make_train_step. Checks that each step
               launched the skip gather 4 times, its backward 4 times and
               fgbg_sums once, that loss and gradients are finite, that the
-              loss falls over 10 steps on the batch, and that one step with
+              loss falls over 10 steps on the batch (the lowest at least
+              5 % below the first: loss_steps), and that one step with
               the kernels matches the same step with the plain versions.
               Times 20 steps one by one and profiles one more. Then one
               step at 32³ on the card against the same step on the CPU.
@@ -69,6 +70,38 @@ Phases; the run fails at the first that fails:
               the phase loss against the plain loss on the same grid.
               Times K3 and K4 at the step's shapes, the GT's parts, 20
               steps, and profiles one more.
+  7. eval     h7's full_eval through EvalPipeline.run_eval: a seeded
+              dataset written to a temporary directory (a manifest of two
+              classes, mesh NPZs of the cube shell and seeded spheres, 10
+              scene NPZs with 256² images stored as uint8 arrays, one or
+              two meshes per scene), the configuration built from a dict
+              (128³, irm 8, no conservative rasterization, batch 4, 6
+              worker processes, prefetch 2), the seeded h7 model through
+              super_resolution_from_model: 3 batches, the last with 2
+              valid scenes. Checks that the confusion matrix sums to
+              10 · 128³, that each batch launched block_scatter_or once and
+              skip_gather 4 times, the first batch's GT against the CPU's
+              (two scenes, bit for bit), the confusion matrix with the
+              kernels against the one with the plain versions, IoU exactly
+              1 for present classes and NaN for absent ones when the
+              inference function returns the one-hot GT, that the CSV
+              parses back to the table, argmax on exact ties, and one more
+              run as SEMANTIC (3 channels). Times the batches (host clock,
+              each ended by the confusion matrix's copy to the host), their
+              split into loader wait, GT, inference and metrics, and
+              profiles one batch.
+  8. train-y1 y1 training: 32³, FG_BG, sub-grid sampling at irm 31 (the
+              general rasterizer, the dense fill, the sub-grid centres), a
+              24-pixel window on triangles subdivided at 20 / 31 / 32,
+              batch 4, random grid offsets, the phase loss on the labeled
+              grid. Checks 4 + 4 + 1 launches (skip_gather, its backward,
+              fgbg_sums), the labeled grid against the CPU's (two scenes,
+              bit for bit), finite loss and gradients, a falling loss, the
+              kernel step against the plain step. Times the GT's parts
+              (CUDA events around eager calls), 20 steps, and profiles one
+              more. Then parity_voxelize_batch at 128³ on the phase-6
+              batch: card against CPU, its difference from raster + fill,
+              its time.
 
 Float32 throughout: TF32 is switched off for convolutions and matmuls, so
 the float32 path computes in float32 on the card as on the CPU.
@@ -83,12 +116,15 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -99,6 +135,7 @@ Y1_NATIVE = (32, 32, 32)
 SERVE_RUNS = 30
 TRAIN_RUNS = 20
 LOSS_STEPS = 10
+LOSS_FALL = 0.05  # the lowest of those steps, relative to the first loss
 TRAIN_SMALL = (32, 32, 32)  # the card-against-CPU step
 # h7's voxelization (configs/models/h7.json5; fill rounds 0 = adaptive,
 # the window of corenet_tpu/eval/pipeline.py:40), for two label values.
@@ -106,6 +143,16 @@ H7_VOX = dict(sub_grid_sampling=False, image_resolution_multiplier=8,
               conservative_rasterization=False,
               projection_depth_multiplier=1, max_bbox_pixels=24,
               fill_rounds=None, num_label_values=2)
+# y1's training voxelization (configs/models/y1.json5), as TrainPipeline
+# passes it to the step.
+Y1_VOX = dict(sub_grid_sampling=True, image_resolution_multiplier=31,
+              conservative_rasterization=False,
+              projection_depth_multiplier=1, max_bbox_pixels=24,
+              fill_rounds=None, num_label_values=2)
+EVAL_SCENES = 10
+EVAL_TIMING_PASSES = 4  # the timed eval reads the dataset this many times
+# (class id, human-readable name) of the eval dataset's manifest.
+EVAL_CLASSES = (("02958343", "cube"), ("03001627", "sphere"))
 GT_TRIANGLES = 16384  # padded triangles per scene
 GT_CPU_SCENES = [0, BATCH - 1]  # voxelized on the CPU too
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -610,6 +657,30 @@ def compare_with_plain_step(torch, modules, state, step, batch, label):
   return loss_rel, worst
 
 
+def loss_steps(state, step, batch, first_loss, label):
+  """LOSS_STEPS more steps on the same batch; the loss must fall: the
+  lowest of them lies at least LOSS_FALL below the first step's. The last
+  step alone is no fair witness. The trajectories part after a few steps
+  from run to run (cuDNN picks its algorithms per process and the
+  backward's atomics sum in any order), and single steps of Adam on
+  BatchRenorm in training mode jump back up: one run in four on an H100
+  ended a step above its first loss after reaching 0.78 from 0.93.
+  Returns the state."""
+  losses = []
+  for _ in range(LOSS_STEPS):
+    state, metrics = step(state, batch)
+    losses.append(float(metrics["loss"]))
+  if not min(losses) < first_loss * (1.0 - LOSS_FALL):
+    raise AssertionError(f"{label}: loss did not fall by {LOSS_FALL:.0%} "
+                         f"over {LOSS_STEPS} steps: {first_loss} then "
+                         f"{losses}")
+  log(f"{label}: loss {first_loss:.6f} at step 1, then " +
+      ", ".join(f"{v:.6f}" for v in losses) +
+      f"; lowest {min(losses):.6f} = {1.0 - min(losses) / first_loss:.1%} "
+      f"below the first (at least {LOSS_FALL:.0%} asked)")
+  return state
+
+
 def train_h7(torch, op, fgbg, CoreNet, config, image, camera, v2x, offsets,
              dev):
   """Phase 5: the h7 training step. Returns the launches of the first
@@ -650,15 +721,7 @@ def train_h7(torch, op, fgbg, CoreNet, config, image, camera, v2x, offsets,
 
   compare_with_plain_step(torch, (op, fgbg), state, step, batch, "h7 train")
 
-  losses = []
-  for _ in range(LOSS_STEPS):
-    state, metrics = step(state, batch)
-    losses.append(float(metrics["loss"]))
-  if not losses[-1] < first_loss:
-    raise AssertionError(f"h7 train: loss did not fall over {LOSS_STEPS} "
-                         f"steps: {first_loss} then {losses}")
-  log(f"h7 train: loss {first_loss:.6f} at step 1, then " +
-      ", ".join(f"{v:.6f}" for v in losses))
+  state = loss_steps(state, step, batch, first_loss, "h7 train")
 
   torch.cuda.reset_peak_memory_stats()
   times = []
@@ -756,17 +819,17 @@ def sphere_mesh(rng, centre, radius, n_lat=8, n_lon=12):
   return verts[np.array(tris)].astype(np.float32)
 
 
-def triangle_batch(torch, image, camera, seed):
-  """The phase-6 batch on the host: per scene the subdivided cube shell
-  (slot 0) moved by a seeded offset of at most 0.05 per axis, and a
-  seeded sphere of radius 0.09 near a corner (slot 1, label 0 in the last
-  scene), padded to GT_TRIANGLES; the serving images and cameras."""
+def triangle_batch(torch, image, camera, seed, irm=8, res=OUTPUT_RES[0]):
+  """A training batch of triangles on the host (phase 6's; phase 8's with
+  y1's irm and resolution): per scene the subdivided cube shell (slot 0)
+  moved by a seeded offset of at most 0.05 per axis, and a seeded sphere
+  of radius 0.09 near a corner (slot 1, label 0 in the last scene),
+  padded to GT_TRIANGLES; the serving images and cameras."""
   import numpy as np
   from corenet_tpu_torch.data.batching import (
       VOXELIZE_WINDOW_PIXELS, subdivide_triangles)
   rng = np.random.default_rng(seed)
-  irm = H7_VOX["image_resolution_multiplier"]
-  max_edge = (VOXELIZE_WINDOW_PIXELS - 4) / irm / OUTPUT_RES[0]
+  max_edge = (VOXELIZE_WINDOW_PIXELS - 4) / irm / res
   triangles = np.zeros((BATCH, GT_TRIANGLES, 3, 3), np.float32)
   slot = np.zeros((BATCH, GT_TRIANGLES), np.int32)
   valid = np.zeros((BATCH, GT_TRIANGLES), bool)
@@ -974,15 +1037,7 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
   phase_loss_rel = compare_with_plain_loss(torch, CoreNet, config, state,
                                            step, batch, packed_or, v2x)
 
-  losses = []
-  for _ in range(LOSS_STEPS):
-    state, metrics = step(state, batch)
-    losses.append(float(metrics["loss"]))
-  if not losses[-1] < first_loss:
-    raise AssertionError(f"h7 train-gt: loss did not fall over {LOSS_STEPS} "
-                         f"steps: {first_loss} then {losses}")
-  log(f"h7 train-gt: loss {first_loss:.6f} at step 1, then " +
-      ", ".join(f"{v:.6f}" for v in losses))
+  state = loss_steps(state, step, batch, first_loss, "h7 train-gt")
 
   k3, k4, split = gt_kernel_rows(torch, scatter, phased, batch, packed_or,
                                  rounds)
@@ -1064,6 +1119,602 @@ def compare_with_plain_loss(torch, CoreNet, config, state, step, batch,
       f"{plain_loss:.7f} on the same GT ({rel:.2e} relative; tolerance "
       "1e-6)")
   return rel
+
+
+def event_ms(torch, fn, reps=3):
+  """Device-timeline time per call: CUDA events around `reps` eager calls
+  after one warm-up. Unlike device_ms it takes no CUDA graph, so it also
+  times code that copies from the host; launch gaps count."""
+  fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(reps):
+    fn()
+  end.record()
+  end.synchronize()
+  return start.elapsed_time(end) / reps
+
+
+def write_eval_dataset(root, seed):
+  """A seeded dataset in the on-disk format of corenet_tpu_torch/data:
+  mesh NPZs (the cube shell, a small sphere near a corner and a big one
+  at the centre), EVAL_SCENES scene NPZs (the cube alone or with a sphere, each moved by
+  at most 0.05 per axis; 256² images stored as uint8 arrays inside 0-d
+  object arrays, so that no image codec is needed; the serving cameras)
+  and the manifest. Returns (manifest path, meshes dir)."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  (cube_id, _), (sphere_id, _) = EVAL_CLASSES
+  meshes = {
+      (cube_id, "shell"): cube_shell(),
+      (sphere_id, "small"): sphere_mesh(rng, np.array([0.15, 0.15, 0.86]),
+                                        0.09),
+      (sphere_id, "big"): sphere_mesh(rng, np.array([0.5, 0.5, 0.5]), 0.22),
+  }
+  meshes_dir = os.path.join(root, "meshes")
+  for (label, name), vertices in meshes.items():
+    os.makedirs(os.path.join(meshes_dir, label), exist_ok=True)
+    np.savez(os.path.join(meshes_dir, label, name + ".npz"),
+             vertices=vertices)
+  # The cube comes first in every scene: FG_BG labels a scene by its first
+  # mesh, so the sphere class is absent there (NaN) and present as SEMANTIC.
+  layouts = ([(cube_id, "shell"), (sphere_id, "small")],
+             [(cube_id, "shell"), (sphere_id, "big")], [(cube_id, "shell")])
+  near, far = 0.5, 3.0
+  a = (far + near) / (far - near)
+  b = -2 * far * near / (far - near)
+
+  def boxed(image):
+    box = np.empty((), dtype=object)
+    box[()] = image
+    return box
+
+  files = []
+  for i in range(EVAL_SCENES):
+    layout = layouts[i % len(layouts)]
+    o2w = np.tile(np.eye(4, dtype=np.float32), (len(layout), 1, 1))
+    o2w[:, :3, 3] = rng.uniform(-0.05, 0.05, (len(layout), 3))
+    f = 1.8 + 0.1 * (i % BATCH)
+    image = rng.integers(0, 256, (IMAGE_HW, IMAGE_HW, 3), dtype=np.uint8)
+    files.append(f"scene_{i:03d}.npz")
+    np.savez(
+        os.path.join(root, files[-1]),
+        mesh_labels=np.array([label for label, _ in layout]),
+        mesh_filenames=np.array([name for _, name in layout]),
+        view_transform=np.eye(4, dtype=np.float32),
+        mesh_object_to_world_transforms=o2w,
+        camera_transform=np.array(
+            [[f, 0, 0, -0.5 * f], [0, f, 0, -0.5 * f], [0, 0, a, a + b],
+             [0, 0, 1, 1.0]], np.float32),
+        mesh_visible_fractions=np.ones(len(layout), np.float32),
+        opengl_image=boxed(image), pbrt_image=boxed(image))
+  manifest = os.path.join(root, "dataset.json")
+  with open(manifest, "w") as out:
+    json.dump({"classes": [{"id": cid, "human_readable": name}
+                           for cid, name in EVAL_CLASSES],
+               "files": files}, out)
+  return manifest, meshes_dir
+
+
+def h7_eval_config(manifest, meshes_dir, task_type, passes=1):
+  """h7's full_eval (configs/models/h7.json5:201-236) as plain data, on
+  the seeded dataset, listed `passes` times."""
+  return {
+      "name": "full_eval",
+      "data": {
+          "datasets": [{"dataset_path": manifest, "meshes_dir": meshes_dir,
+                        "high_realism": True, "shuffle": "ONCE",
+                        "data_fraction": 1.0}] * passes,
+          "shuffle": "ONCE",
+          "data_loader": {"num_data_workers": 6, "batch_size": BATCH,
+                          "prefetch_factor": 2, "worker_processes": True},
+          "voxelization_config": {
+              "task_type": task_type,
+              "resolution": dict(zip(("depth", "height", "width"),
+                                     OUTPUT_RES)),
+              "sub_grid_sampling": False,
+              "conservative_rasterization": False,
+              "voxelization_image_resolution_multiplier": 8,
+              "voxelization_projection_depth_multiplier": 1,
+              "voxelization_fill_rounds": 0}},
+      "num_qualitative_results": 500,
+      "num_qualitative_results_in_tensor_board": 0}
+
+
+class EvalProbe:
+  """Watches one EvalPipeline.run_eval from outside: keeps the run's
+  QuantitativeResults, the time each batch ended (add_batch ends with the
+  confusion matrix's copy to the host, which waits for the device) and,
+  with `split`, the host-clock time of each batch's GT, inference and
+  metrics, each between two synchronizes, the GT's inputs and grids."""
+
+  def __init__(self, torch, pipeline, results_mod, split=False):
+    self.torch, self.pipeline, self.results_mod = torch, pipeline, results_mod
+    self.split = split
+    self.spans = []   # (part, start, end) on the host clock
+    self.gt_args, self.grids = [], []
+    self.results = None
+
+  def _timed(self, part, fn):
+    def wrapper(*args, **kwargs):
+      if self.split:
+        self.torch.cuda.synchronize()
+      start = time.perf_counter()
+      out = fn(*args, **kwargs)
+      if self.split:
+        self.torch.cuda.synchronize()
+      self.spans.append((part, start, time.perf_counter()))
+      return out
+    return wrapper
+
+  def run(self, global_step=0):
+    """run_eval under the probe → (mean IoU, seconds)."""
+    pipeline, results_cls = self.pipeline, self.results_mod.QuantitativeResults
+    saved = (pipeline._cached_gt_fn, pipeline.inference_fn,
+             results_cls.add_batch)
+    gt_fn = self._timed("gt", saved[0])
+
+    def keeping_gt(*args):
+      grid, v2x = gt_fn(*args)
+      self.gt_args.append(args)
+      self.grids.append(grid)
+      return grid, v2x
+
+    add_batch = self._timed("metrics", saved[2])
+
+    def keeping_results(results, *args, **kwargs):
+      self.results = results
+      return add_batch(results, *args, **kwargs)
+
+    pipeline._cached_gt_fn = keeping_gt
+    pipeline.inference_fn = self._timed("inference", saved[1])
+    results_cls.add_batch = keeping_results
+    self.start = time.perf_counter()
+    try:
+      mean_iou = pipeline.run_eval(global_step)
+    finally:
+      (pipeline._cached_gt_fn, pipeline.inference_fn,
+       results_cls.add_batch) = saved
+    return mean_iou, time.perf_counter() - self.start
+
+  def batch_ms(self):
+    """Per batch: the time from the previous batch's end (the run's start
+    for the first, which waits for the worker processes to start) to this
+    batch's end."""
+    ends = [end for part, _, end in self.spans if part == "metrics"]
+    return [(b - a) * 1e3 for a, b in zip([self.start] + ends[:-1], ends)]
+
+  def split_ms(self):
+    """Per batch: loader wait (from the previous batch's end to the GT's
+    start: the queue's wait and the copies to the device), GT, inference,
+    metrics."""
+    by_part = {part: [(s, e) for p, s, e in self.spans if p == part]
+               for part in ("gt", "inference", "metrics")}
+    rows, previous = [], self.start
+    for gt, inference, metrics in zip(*by_part.values()):
+      rows.append({"loader_wait": (gt[0] - previous) * 1e3,
+                   "gt": (gt[1] - gt[0]) * 1e3,
+                   "inference": (inference[1] - inference[0]) * 1e3,
+                   "metrics": (metrics[1] - metrics[0]) * 1e3})
+      previous = metrics[1]
+    return rows
+
+
+def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
+  """Phase 7: h7's full_eval through EvalPipeline.run_eval on a seeded
+  dataset. Returns the launches per run (skip_gather, block_scatter_or)
+  and the timings."""
+  import numpy as np
+  from corenet_tpu_torch.config import config as cfg
+  from corenet_tpu_torch.eval import pipeline as pipeline_mod
+  from corenet_tpu_torch.eval import results as results_mod
+  from corenet_tpu_torch.eval.super_resolution import (
+      super_resolution_from_model)
+  op, fgbg, scatter, phased = mods
+  voxels = OUTPUT_RES[0] * OUTPUT_RES[1] * OUTPUT_RES[2]
+  with tempfile.TemporaryDirectory() as root:
+    manifest, meshes_dir = write_eval_dataset(root, SEED + 50)
+    out_dir = os.path.join(root, "out")
+
+    def pipeline_for(task_type, infer, passes=1):
+      config = cfg.config_from_dict(
+          cfg.EvalConfig, h7_eval_config(manifest, meshes_dir, task_type,
+                                         passes))
+      return pipeline_mod.EvalPipeline(config, out_dir, infer,
+                                       write_qualitative=False, device=dev)
+
+    h7, h7_state = seeded_model(
+        torch, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)), SEED)
+    infer = super_resolution_from_model(h7, h7_state, OUTPUT_RES, device=dev)
+    pipeline = pipeline_for("FG_BG", infer)
+    classes = list(pipeline.classes)
+    batches = -(-EVAL_SCENES // BATCH)
+
+    # The counted run: the 10 scenes once, kernels, no extra synchronizes.
+    probe = EvalProbe(torch, pipeline, results_mod)
+    torch.cuda.synchronize()
+    zero_counts(*mods)
+    mean_iou, run_s = probe.run()
+    launches = launch_counts(*mods)
+    if launches != (4 * batches, 0, 0, batches, 0):
+      raise AssertionError(f"h7 eval launched (skip_gather, its backward, "
+                           f"fgbg_sums, block_scatter_or, phased_gt) "
+                           f"{launches} times in {batches} batches, expected "
+                           f"4 and 1 per batch")
+    confusion = probe.results.confusion.copy()
+    if confusion.sum() != EVAL_SCENES * voxels:
+      raise AssertionError(f"the confusion matrix sums to {confusion.sum()}, "
+                           f"not {EVAL_SCENES} · {voxels} (padding counted?)")
+    csv_path = os.path.join(out_dir, "full_eval", "0", "voxel_metrics.csv")
+    with open(csv_path, newline="") as text:
+      rows = list(csv.reader(text))
+    table = probe.results.voxel_metrics
+    if rows[0] != [""] + list(table.columns) or len(rows) != 4:
+      raise AssertionError(f"voxel_metrics.csv header {rows[0]}")
+    for row, (name, values) in zip(rows[1:], zip(results_mod.METRIC_NAMES,
+                                                 table.values)):
+      parsed = np.array([float(v) if v else math.nan for v in row[1:]])
+      if row[0] != name or not np.array_equal(parsed, values,
+                                              equal_nan=True):
+        raise AssertionError(f"voxel_metrics.csv row {row} is not {values}")
+    log(f"h7 eval: classes {classes}, {EVAL_SCENES} scenes in {batches} "
+        f"batches of {BATCH} (the last with {EVAL_SCENES % BATCH or BATCH} "
+        f"valid), mean IoU {mean_iou:.6f}, confusion matrix "
+        f"{confusion.tolist()} sums to {EVAL_SCENES} · {OUTPUT_RES[0]}³; launches "
+        f"(skip_gather, block_scatter_or) ({launches[0]}, {launches[3]}) = "
+        f"(4, 1) per batch; voxel_metrics.csv parses back to the table; "
+        f"run {run_s:.3f} s")
+
+    # The timed run: the dataset listed EVAL_TIMING_PASSES times, so that
+    # most batches run while the loader works, as in a long eval.
+    timed = pipeline_for("FG_BG", infer, passes=EVAL_TIMING_PASSES)
+    probe = EvalProbe(torch, timed, results_mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, run_s = probe.run()
+    mem = torch.cuda.max_memory_allocated()
+    batch_ms = probe.batch_ms()
+    ms = statistics.median(batch_ms)
+    if probe.results.confusion.sum() != EVAL_TIMING_PASSES * confusion.sum():
+      raise AssertionError(f"the timed run counted "
+                           f"{probe.results.confusion.sum()} voxels")
+    log(f"h7 eval, {EVAL_TIMING_PASSES * EVAL_SCENES} scenes: run "
+        f"{run_s:.3f} s; batch times on the host clock, each ended by the "
+        f"confusion matrix's copy to the host: " +
+        ", ".join(f"{v:.3f}" for v in batch_ms) +
+        f" ms (the first waits for the worker processes to start); median "
+        f"{ms:.3f} ms per batch of {BATCH} = {BATCH * 1e3 / ms:.2f} eval "
+        f"scenes/s; peak memory {mem / 2**30:.2f} GiB")
+
+    # The same run with a synchronize around each part, for the split,
+    # and with the first batch's GT kept.
+    split_probe = EvalProbe(torch, timed, results_mod, split=True)
+    split_probe.run()
+    split = split_probe.split_ms()
+    parts = {k: statistics.median(row[k] for row in split) for k in split[0]}
+    log("h7 eval: batch split on the host clock (a synchronize around each "
+        "part), per batch: " + "; ".join(
+            ", ".join(f"{k} {v:.3f}" for k, v in row.items())
+            for row in split) + " ms; medians " +
+        ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    differ = int(np.abs(split_probe.results.confusion
+                        - probe.results.confusion).sum() // 2)
+    log(f"h7 eval: the confusion matrices of the two timed runs differ by "
+        f"{differ} voxels of {probe.results.confusion.sum()} (cuDNN picks "
+        "its algorithms per run)")
+    del timed
+
+    # The first batch's GT on the card against the CPU's.
+    start = time.perf_counter()
+    cpu_grid, _ = pipeline._cached_gt_fn(
+        *(a[GT_CPU_SCENES].cpu() for a in split_probe.gt_args[0]))
+    cpu_s = time.perf_counter() - start
+    card_grid = split_probe.grids[0][GT_CPU_SCENES].cpu()
+    differ = int((cpu_grid != card_grid).sum())
+    if differ or card_grid.dtype != torch.uint8:
+      raise AssertionError(f"{differ} voxels of the first eval batch's GT "
+                           f"({card_grid.dtype}) differ between the card and "
+                           "the CPU")
+    log(f"h7 eval: the first batch's GT {list(split_probe.grids[0].shape)} "
+        f"uint8 (foreground {float(card_grid.float().mean()):.4f}) of scenes "
+        f"{GT_CPU_SCENES} equals the CPU's bit for bit ({cpu_s:.1f} s on the "
+        "CPU)")
+
+    # Kernels against plain versions: the same confusion matrix, with
+    # cuDNN held to deterministic algorithms for both.
+    matrices = []
+    torch.backends.cudnn.deterministic = True
+    try:
+      for plain in (False, True):
+        run = EvalProbe(torch, pipeline, results_mod)
+        counts = launch_counts(*mods)
+        with plain_versions(op, scatter) if plain else (
+            contextlib.nullcontext()):
+          run.run()
+        if (launch_counts(*mods) != counts) == plain:
+          raise AssertionError(f"the {'plain' if plain else 'kernel'} eval "
+                               f"{'launched' if plain else 'skipped'} kernels")
+        matrices.append(run.results.confusion.copy())
+    finally:
+      torch.backends.cudnn.deterministic = False
+    if not np.array_equal(*matrices):
+      raise AssertionError(f"confusion matrix with the kernels "
+                           f"{matrices[0].tolist()} and with the plain "
+                           f"versions {matrices[1].tolist()}")
+    log("h7 eval: the confusion matrix with the kernels equals the one with "
+        f"the plain versions: {matrices[0].tolist()}")
+
+    # An inference function that returns the one-hot of the GT: IoU 1 for
+    # every class the dataset holds, NaN for the others.
+    holder = []
+
+    def one_hot_of_gt(image, camera, v2x, offsets, resolution):
+      return torch.nn.functional.one_hot(holder[-1].long(), 2).float()
+
+    oracle = pipeline_for("FG_BG", one_hot_of_gt)
+    gt_fn = oracle._cached_gt_fn
+
+    def keeping(*args):
+      out = gt_fn(*args)
+      holder.append(out[0])
+      return out
+
+    oracle._cached_gt_fn = keeping
+    run = EvalProbe(torch, oracle, results_mod)
+    oracle_iou, _ = run.run()
+    present = run.results.confusion.sum(axis=1) > 0
+    iou = run.results.voxel_metrics.row("iou")[:-1]
+    if not (present.tolist() == [True, True, False]
+            and (iou[present] == 1.0).all()
+            and np.isnan(iou[~present]).all() and oracle_iou == 1.0):
+      raise AssertionError(f"one-hot GT as the prediction: IoU {iou}, "
+                           f"present {present}, mean {oracle_iou}")
+    log(f"h7 eval: with the one-hot GT as the prediction, IoU {iou.tolist()} "
+        f"over {classes} (1.0 where present, NaN where absent), mean IoU "
+        f"{oracle_iou}")
+
+    # argmax on exact ties takes the first maximum, as jnp.argmax does.
+    ties = torch.tensor([[0.5, 0.5, 0.0], [0.2, 0.4, 0.4], [1 / 3] * 3,
+                         [0.0, 0.5, 0.5]], device=dev).reshape(1, 1, 2, 2, 3)
+    pred, _ = results_mod.extract_labels(
+        ties, torch.zeros((1, 1, 2, 2), dtype=torch.uint8, device=dev),
+        torch.ones(1, dtype=torch.int32, device=dev), "SEMANTIC")
+    if pred.flatten().tolist() != [0, 1, 0, 1]:
+      raise AssertionError(f"argmax on ties gave {pred.flatten().tolist()}")
+
+    # One batch again, for the device profile.
+    batches_of = iter(pipeline_mod.DataLoader(
+        pipeline.dataset_manager.create_dataset(local_seed=0),
+        batch_size=BATCH, num_workers=2, worker_processes=False,
+        max_edge_view=(pipeline_mod.VOXELIZE_WINDOW_PIXELS - 4) / 8
+        / OUTPUT_RES[0]))
+    held = [next(batches_of)]
+    batches_of.close()
+
+    def one_batch():
+      pipeline._run_batches(held, pipeline._cached_gt_fn, "FG_BG",
+                            OUTPUT_RES, results_mod.QuantitativeResults(
+                                classes, "FG_BG"))
+
+    walls = []
+    for _ in range(5):
+      torch.cuda.synchronize()
+      start = time.perf_counter()
+      one_batch()
+      walls.append((time.perf_counter() - start) * 1e3)
+    held_ms = statistics.median(walls)
+    log(f"h7 eval: one held batch (copies to the device, GT, inference, "
+        f"metrics; no loader) median of 5 {held_ms:.3f} ms")
+    log_profile("h7 eval", device_profile(torch, one_batch), held_ms,
+                what="held batch")
+    del h7, infer, pipeline, oracle
+    torch.cuda.empty_cache()
+
+    # Once more as SEMANTIC: one channel per class.
+    sem, sem_state = seeded_model(
+        torch, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES,
+                                                    len(classes))), SEED + 51)
+    semantic = pipeline_for("SEMANTIC", super_resolution_from_model(
+        sem, sem_state, OUTPUT_RES, device=dev))
+    run = EvalProbe(torch, semantic, results_mod)
+    zero_counts(*mods)
+    sem_iou, sem_s = run.run()
+    sem_launches = launch_counts(*mods)
+    sem_confusion = run.results.confusion
+    if (sem_launches != launches or sem_confusion.sum() != EVAL_SCENES * voxels
+        or (sem_confusion.sum(axis=1) > 0).sum() != len(classes)):
+      raise AssertionError(f"SEMANTIC eval: launches {sem_launches}, "
+                           f"confusion {sem_confusion.tolist()}")
+    sem_ms = statistics.median(run.batch_ms())
+    log(f"h7 eval as SEMANTIC ({len(classes)} channels): mean IoU "
+        f"{sem_iou:.6f}, confusion matrix {sem_confusion.tolist()}, every "
+        f"class present in the GT; run {sem_s:.3f} s, median batch "
+        f"{sem_ms:.3f} ms = {BATCH * 1e3 / sem_ms:.2f} eval scenes/s")
+  return launches, {"batch_ms": batch_ms, "median_batch_ms": ms,
+                    "split_ms": parts, "held_batch_ms": held_ms,
+                    "semantic_median_batch_ms": sem_ms}
+
+
+def train_y1(torch, mods, CoreNet, config, image, camera, dev):
+  """Phase 8: y1 training on ground truth from the general rasterizer
+  (sub-grid sampling, irm 31), with the phase loss on the labeled grid.
+  Returns the launches of the first step and the timings."""
+  from corenet_tpu_torch.train import gt
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  from corenet_tpu_torch.voxel import fill as fill_mod
+  from corenet_tpu_torch.voxel import voxelize
+  op, fgbg = mods[:2]
+  res = Y1_NATIVE
+  host, counts = triangle_batch(
+      torch, image, camera, SEED + 61,
+      irm=Y1_VOX["image_resolution_multiplier"], res=res[0])
+  batch = {k: v.to(dev) for k, v in host.items()}
+  log(f"y1 train: (cube, sphere) triangles per scene {counts}, padded to "
+      f"{GT_TRIANGLES}; slot 1 label 0 in scene {BATCH - 1}; random grid "
+      "offsets")
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 60,
+                          phase_output=True)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", res,
+                         voxelization_kwargs=Y1_VOX)
+
+  torch.cuda.synchronize()
+  zero_counts(*mods)
+  rounds0 = fill_mod.round_count
+  start = time.perf_counter()
+  state, metrics = step(state, batch)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - start
+  launches = launch_counts(*mods)
+  rounds = fill_mod.round_count - rounds0
+  if launches != (4, 4, 1, 0, 0):
+    raise AssertionError(f"y1 train step launched (skip_gather, its "
+                         f"backward, fgbg_sums, block_scatter_or, phased_gt) "
+                         f"{launches} times, expected (4, 4, 1, 0, 0)")
+  first_loss = float(metrics["loss"])
+  bad = [n for n, p in state.model.named_parameters()
+         if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+  if not math.isfinite(first_loss) or bad:
+    raise AssertionError(f"y1 train: loss {first_loss}, non-finite or "
+                         f"missing gradients {bad[:5]}")
+  log(f"y1 train: first step {first_s:.3f} s, loss {first_loss:.6f}, "
+      f"launches (skip_gather, backward, fgbg_sums) {launches[:3]}, "
+      f"{rounds} dense fill rounds, loss and all gradients finite")
+
+  # The step's labeled grid on the card against the CPU's.
+  args = [batch[k] for k in GT_KEYS]
+  grid, _ = gt.voxelize_batch(*args, resolution=res, **Y1_VOX)
+  start = time.perf_counter()
+  cpu_grid, _ = gt.voxelize_batch(*(host[k][GT_CPU_SCENES] for k in GT_KEYS),
+                                  resolution=res, **Y1_VOX)
+  cpu_s = time.perf_counter() - start
+  differ = int((cpu_grid != grid[GT_CPU_SCENES].cpu()).sum())
+  if differ or grid.dtype != torch.int32:
+    raise AssertionError(f"{differ} voxels of scenes {GT_CPU_SCENES} "
+                         f"({grid.dtype}) differ between the card's and the "
+                         "CPU's general rasterizer (tolerance 0)")
+  log(f"y1 train: the labeled grid {list(grid.shape)} int32 (foreground "
+      f"{float(grid.float().mean()):.4f}) of scenes {GT_CPU_SCENES} equals "
+      f"the CPU's bit for bit ({cpu_s:.1f} s on the CPU)")
+
+  compare_with_plain_step(torch, (op, fgbg), state, step, batch, "y1 train")
+
+  state = loss_steps(state, step, batch, first_loss, "y1 train")
+
+  # The GT's parts, as train/gt.py::_general_batch runs them.
+  b, slots = batch["mesh_labels"].shape
+  d, h, w = res
+  v2v = gt._view2voxel_uniform(batch["grid_offset"], float(max(res)),
+                               slots).reshape(b * slots, 4, 4)
+  scene = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+  mesh_index = (scene * slots + batch["tri_mesh_slot"]).reshape(-1)
+
+  def raster():
+    return voxelize.voxelize_triangles(
+        batch["triangles"].reshape(-1, 3, 3), mesh_index, v2v,
+        batch["tri_valid"].reshape(-1), num_meshes=b * slots, resolution=res,
+        **{k: Y1_VOX[k] for k in (
+            "sub_grid_sampling", "image_resolution_multiplier",
+            "conservative_rasterization", "projection_depth_multiplier",
+            "max_bbox_pixels")})
+
+  shell = raster()
+  filled = fill_mod.fill_inside_voxels(shell, fill_rounds=rounds)
+  labels = batch["mesh_labels"].float()[:, :, None, None, None]
+
+  def centres_compose():
+    centres = voxelize.get_sub_grid_centers(filled)
+    return (centres.reshape(b, slots, d, h, w) * labels).amax(dim=1).int()
+
+  if not torch.equal(centres_compose(), grid):
+    raise AssertionError("the GT's parts do not give the step's grid")
+  window = Y1_VOX["max_bbox_pixels"]
+  chunk = (1 << 22) // window ** 2
+  split = {
+      "raster_ms": event_ms(torch, raster),
+      "raster_chunks": -(-b * GT_TRIANGLES // chunk),
+      "fill_ms": event_ms(torch, lambda: fill_mod.fill_inside_voxels(
+          shell, fill_rounds=rounds)),
+      "fill_rounds": rounds,
+      "centres_compose_ms": event_ms(torch, centres_compose)}
+  split["sum_ms"] = (split["raster_ms"] + split["fill_ms"]
+                     + split["centres_compose_ms"])
+  del shell, filled
+
+  torch.cuda.reset_peak_memory_stats()
+  times = []
+  for _ in range(TRAIN_RUNS):
+    start = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+  mem = torch.cuda.max_memory_allocated()
+  ms = statistics.median(times)
+  holder = [state]
+
+  def one_step():
+    holder[0], _ = step(holder[0], batch)
+
+  log_profile("y1 train", device_profile(torch, one_step), ms, what="step")
+  log(f"y1 train: GT device time by part (CUDA events around 3 eager calls, "
+      f"launch gaps included; sub-grid {list(2 * r + 1 for r in res)} × "
+      f"{b * slots} meshes): " + ", ".join(
+          f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+          for k, v in split.items()) +
+      f"; {split['sum_ms'] / ms:.4f} of the step")
+  log(f"y1 train: over {TRAIN_RUNS} steps median {ms:.3f} ms (min "
+      f"{min(times):.3f}, max {max(times):.3f}) per batch of {BATCH} = "
+      f"{BATCH * 1e3 / ms:.2f} training scenes/s; first step {first_s:.3f} "
+      f"s; peak memory {mem / 2**30:.2f} GiB")
+  split["step_ms"] = ms
+  return launches, split
+
+
+def parity_row(torch, image, camera, dev):
+  """parity_voxelize_batch at 128³ on the phase-6 batch: the card against
+  the CPU, the voxels where it differs from raster + fill (the grazed
+  shell), and its time."""
+  from corenet_tpu_torch.train import gt
+  from corenet_tpu_torch.voxel.parity import parity_voxelize_batch
+  host, _ = triangle_batch(torch, image, camera, SEED + 41,
+                           res=OUTPUT_RES[0])
+  args = [host[k].to(dev) for k in GT_KEYS]
+  slots = host["mesh_labels"].shape[1]
+
+  def parity(inputs=args):
+    return parity_voxelize_batch(*inputs, num_mesh_slots=slots,
+                                 resolution=OUTPUT_RES)[0]
+
+  grid = parity()
+  start = time.perf_counter()
+  cpu_grid = parity([host[k][GT_CPU_SCENES[:1]] for k in GT_KEYS])
+  cpu_s = time.perf_counter() - start
+  differ = int((cpu_grid != grid[GT_CPU_SCENES[:1]].cpu()).sum())
+  if differ:
+    raise AssertionError(f"{differ} voxels of scene {GT_CPU_SCENES[0]} differ "
+                         "between the card's and the CPU's parity grid "
+                         "(tolerance 0)")
+  raster, _ = gt.voxelize_batch(*args, resolution=OUTPUT_RES, **H7_VOX)
+  inside = int((grid > 0).sum())
+  only_raster = int(((raster > 0) & (grid == 0)).sum())
+  only_parity = int(((raster == 0) & (grid > 0)).sum())
+  # The grazed shell is a surface's worth of voxels; a leak would differ
+  # by a volume's worth.
+  if not (0 < inside and only_parity <= 0.01 * inside
+          and only_raster <= 0.5 * inside):
+    raise AssertionError(f"parity grid: {inside} inside, {only_raster} only "
+                         f"in raster + fill, {only_parity} only in parity")
+  ms = event_ms(torch, parity)
+  log(f"parity GT at 128³ on the phase-6 batch: scene {GT_CPU_SCENES[0]} on "
+      f"the card equals the CPU's bit for bit ({cpu_s:.1f} s on the CPU); "
+      f"{inside} voxels inside, {only_raster} only in raster + fill (the "
+      f"grazed shell), {only_parity} only in parity; {ms:.3f} ms per batch "
+      f"of {BATCH} (CUDA events around 3 eager calls)")
+  return {"ms": ms, "inside": inside, "only_raster": only_raster,
+          "only_parity": only_parity}
 
 
 def main() -> int:
@@ -1249,9 +1900,32 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   # 6. Training on ground truth voxelized in the step, phase loss, h7.
+  mods = (op, fgbg, scatter, phased)
   gt_launches, k3_row, k4_row, gt_split = train_gt_h7(
-      torch, (op, fgbg, scatter, phased), CoreNet,
-      CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)), image, camera, dev)
+      torch, mods, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)),
+      image, camera, dev)
+  torch.cuda.empty_cache()
+
+  # 7. Eval, h7's full_eval through EvalPipeline.
+  eval_launches, eval_times = eval_h7(torch, mods, CoreNet, CoreNetConfig,
+                                      DecoderConfig, dev)
+  torch.cuda.empty_cache()
+
+  # 8. y1 training on the general GT, as TrainPipeline builds the model for
+  # y1 (latent 64, skip fraction 0.75, the phase loss), then the parity GT.
+  y1_launches, y1_split = train_y1(
+      torch, mods, CoreNet, CoreNetConfig(DecoderConfig(
+          Y1_NATIVE, 2, last_upscale_factor=2, latent_channels=64,
+          skip_fraction=0.75)), image, camera, dev)
+  parity = parity_row(torch, image, camera, dev)
+
+  # Launches per path, each counted from zero just before the path ran:
+  # one serving forward, one training step, one eval run of 3 batches.
+  def by_path(i, serve=None, train=None):
+    return {"h7 serve, 1 forward": serve, "h7 train, 1 step": train,
+            "h7 train-gt, 1 step": gt_launches[i],
+            f"h7 eval, {-(-EVAL_SCENES // BATCH)} batches": eval_launches[i],
+            "y1 train, 1 step": y1_launches[i]}
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -1260,6 +1934,7 @@ def main() -> int:
       "source": "corenet_tpu_torch/csrc/skip_gather.cu",
       "replaces": "corenet_tpu/ops/skip_gather.py:128",
       "launches": main_launches,
+      "launches_by_path": by_path(0, main_launches, train_launches[0]),
       "max_abs_err": max_err,
       # Per h7 forward in float32: the sum over its four skips.
       "ms": h7_sums["ms"],
@@ -1280,6 +1955,7 @@ def main() -> int:
       "source": "corenet_tpu_torch/csrc/skip_gather.cu",
       "replaces": "corenet_tpu/ops/skip_gather.py:139",
       "launches": train_launches[1],
+      "launches_by_path": by_path(1, 0, train_launches[1]),
       "max_abs_err": max(row["max_abs_err_vs_plain"] for row in bwd_rows),
       # Per h7 training step in float32: the sum over its four skips, the
       # kernel in the step's layout.
@@ -1299,6 +1975,7 @@ def main() -> int:
       "source": "corenet_tpu_torch/csrc/fgbg_sums.cu",
       "replaces": "corenet_tpu/ops/fgbg_loss.py:62",
       "launches": train_launches[2],
+      "launches_by_path": by_path(2, 0, train_launches[2]),
       "max_abs_err": max(row["max_abs_err"] for row in loss_rows),
       # The h7 training step's call: f32 diff, int32 labels.
       **{key: int32_row[key]
@@ -1312,21 +1989,28 @@ def main() -> int:
       {"name": name, "route": "cuda",
        "source": f"corenet_tpu_torch/csrc/{source}.cu",
        "replaces": replaces, "launches": launches,
+       "launches_by_path": by_path(index, 0, 0),
        **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms")},
        "bound_by": "bytes", "library_ms": None, "library_call": None,
        "timing": entry["timing"], "shapes": [row]}
-      for name, source, replaces, launches, row in (
+      for name, source, replaces, index, launches, row in (
           ("block_scatter_or", "block_scatter",
-           "corenet_tpu/ops/block_scatter.py:219", gt_launches[3], k3_row),
-          ("phased_gt", "phased_gt", "corenet_tpu/ops/phased_gt.py:128",
+           "corenet_tpu/ops/block_scatter.py:219", 3, gt_launches[3], k3_row),
+          ("phased_gt", "phased_gt", "corenet_tpu/ops/phased_gt.py:128", 4,
            gt_launches[4], k4_row))]
   gt_entries[0]["gt_split"] = gt_split
+  gt_entries[0]["eval_h7"] = eval_times
+  entry["y1_general_gt_split"] = y1_split
+  entry["parity_gt_128"] = parity
   log(f"h7 scenes/s {BATCH * 1e3 / h7_ms:.3f}; y1 scenes/s "
       f"{BATCH * 1e3 / y1_ms:.3f} (median of {SERVE_RUNS} forwards); h7 "
       f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
-      f"{BATCH * 1e3 / gt_split['step_ms']:.3f} on GT voxelized in the step "
-      f"(medians of {TRAIN_RUNS} steps)")
+      f"{BATCH * 1e3 / gt_split['step_ms']:.3f} on GT voxelized in the step, "
+      f"y1 training scenes/s {BATCH * 1e3 / y1_split['step_ms']:.3f} on the "
+      f"general GT (medians of {TRAIN_RUNS} steps); h7 eval scenes/s "
+      f"{BATCH * 1e3 / eval_times['median_batch_ms']:.3f} (median of "
+      f"{len(eval_times['batch_ms'])} batches)")
   log(smi)
   log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries}))
   log(json.dumps({"ok": True, "device": {

@@ -9,20 +9,37 @@ counterpart is the file of the same path there:
   models/    ResNet-50, BatchRenorm, decoder (with its phase-major
              output), ray-traced skips, losses, the weight bridge from
              the JAX package's variables
-  voxel/     bit-packed grids, the packed interior fill, the blocked
-             triangle rasterizer
-  data/      host-side (numpy) triangle subdivision and padding
+  voxel/     bit-packed grids and their interior fill, the blocked
+             triangle rasterizer; the general rasterizer, the dense
+             interior fill, label composition, ray-parity voxelization
+  config/    typed configurations, loaded from JSON5 files or plain dicts
+  data/      host side (numpy): scene and mesh NPZ readers, manifest
+             datasets and their manager, batch assembly with triangle
+             subdivision and padding, the prefetching loader
   train/     training state and step (on ground-truth grids from the
              batch or voxelized in the step, with the phase loss), the
              on-device ground truth, the voxel → screen matrix, the eval
              forward
-  eval/      super-resolution inference
+  eval/      super-resolution inference; the eval pipeline with its
+             metrics and results (confusion matrix, IoU, the CSV)
+  utils/     rounding and tiling helpers, local + gs:// file I/O
 
-Ported so far: the serving path and the training step, on host ground
-truth or on ground truth voxelized in the step by the blocked rasterizer
-(with the phase loss for FG_BG), f32, fine (unpacked) execution. Public
+Ported so far: the serving path; the training step, on host ground truth
+or on ground truth voxelized in the step (the blocked rasterizer with the
+phase loss for FG_BG, the general rasterizer for every other
+configuration, ray parity); the eval pipeline from a dataset manifest to
+`voxel_metrics.csv`. f32, fine (unpacked) execution, one process. Public
 functions keep the JAX package's channel-last layouts. Nothing here
-imports JAX or corenet_tpu.
+imports JAX, corenet_tpu or pandas; json5 and PIL are optional.
+
+An eval on the CPU, from a manifest to the mean IoU:
+
+  from corenet_tpu_torch import config
+  from corenet_tpu_torch.eval.pipeline import EvalPipeline
+  eval_config = config.config_from_dict(config.EvalConfig, {...})
+  pipeline = EvalPipeline(eval_config, output_dir, inference_fn,
+                          write_qualitative=False, device="cpu")
+  mean_iou = pipeline.run_eval(global_step=0)
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,2 @@
-"""Host-side (numpy) preparation of triangle batches for the on-device
-ground truth."""
+"""Host-side (numpy) data path: scene and mesh readers, manifest datasets,
+batch assembly with triangle subdivision, and the prefetching loader."""

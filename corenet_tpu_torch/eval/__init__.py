@@ -1,1 +1,2 @@
-"""Inference and evaluation."""
+"""Inference and evaluation: super-resolution inference, the eval pipeline,
+its metrics and results."""

@@ -1,13 +1,15 @@
 """On-device ground-truth voxelization for the training step.
 
-Counterpart of corenet_tpu/train/gt.py, blocked rasterizer only: a
-batch's subdivided triangles become, on its device, either a labeled grid
-(`voxelize_batch`) or, for FG_BG, one bit-packed grid per scene
-(`voxelize_batch_packed_fgbg`), which the phase-loss step turns into
-phase-major labels with ops/phased_gt.py. The configurations the blocked
-rasterizer does not serve (voxel/raster_fast.py::blocked_eligible: sub-grid
-sampling, non-cubic grids, windows wider than the subdivision contract)
-need the general rasterizer, which is not ported yet; they raise.
+Counterpart of corenet_tpu/train/gt.py: a batch's triangles become, on
+its device, either a labeled grid (`voxelize_batch`) or, for FG_BG, one
+bit-packed grid per scene (`voxelize_batch_packed_fgbg`), which the
+phase-loss step turns into phase-major labels with ops/phased_gt.py.
+`voxelize_batch` takes the blocked rasterizer (voxel/raster_fast.py: the
+block_scatter_or kernel and the packed fill) where the configuration
+meets its contract, and the general one (voxel/voxelize.py with the dense
+fill of voxel/fill.py) for the rest: sub-grid sampling, non-cubic grids,
+projection depth multipliers, windows wider than the subdivision
+contract, more than 256 label values.
 
 Per-scene layout (data/batching.py):
   triangles      float32[B, T, 3, 3]   view space, padded
@@ -23,14 +25,14 @@ locations; the returned v2x is the unshifted scale.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from corenet_tpu_torch.voxel import raster_fast
-
-_GENERAL_PATH = (
-    "needs the general rasterizer (sub-grid sampling, non-cubic grids, "
-    "projection depth multipliers, windows beyond the subdivision "
-    "contract), which comes with the port's next slice (ROADMAP slice 4)")
+from corenet_tpu_torch.voxel.fill import fill_inside_voxels
+from corenet_tpu_torch.voxel.voxelize import (
+    get_sub_grid_centers, voxelize_triangles)
 
 
 def _v2x(b: int, m: float, device) -> torch.Tensor:
@@ -47,6 +49,69 @@ def _view2voxel_uniform(grid_offsets: torch.Tensor, m: float,
   w2x = _v2x(b, m, grid_offsets.device)
   w2x[:, :3, 3] = grid_offsets - 0.5
   return w2x[:, None].expand(b, num_mesh_slots, 4, 4)
+
+
+def _general_batch(triangles: torch.Tensor,
+                   tri_mesh_slot: torch.Tensor,
+                   tri_valid: torch.Tensor,
+                   mesh_labels: torch.Tensor,
+                   grid_offsets: torch.Tensor,
+                   *,
+                   resolution: Tuple[int, int, int],
+                   sub_grid_sampling: bool = False,
+                   image_resolution_multiplier: float = 4,
+                   conservative_rasterization: bool = True,
+                   projection_depth_multiplier: int = 1,
+                   fill_inside: bool = True,
+                   max_bbox_pixels: Optional[int] = None,
+                   fill_rounds: Optional[int] = None) -> torch.Tensor:
+  """General rasterizer → dense fill → sub-grid centres → labels:
+  int32[B, D, H, W]. The scenes' mesh slots are rasterized and filled as
+  one array of B·M meshes (triangles do not interact, so the grids are
+  those of one call per scene)."""
+  d, h, w = resolution
+  b, num_mesh_slots = mesh_labels.shape
+  view2voxel = _view2voxel_uniform(grid_offsets, float(max(d, h, w)),
+                                   num_mesh_slots)
+  scene = torch.arange(b, dtype=tri_mesh_slot.dtype,
+                       device=tri_mesh_slot.device)[:, None]
+  # A slot outside the scene's drops the triangle; it must not reach a
+  # neighbouring scene's slots.
+  in_scene = (tri_mesh_slot >= 0) & (tri_mesh_slot < num_mesh_slots)
+  mesh_grids = voxelize_triangles(
+      triangles.reshape(-1, 3, 3),
+      (scene * num_mesh_slots + tri_mesh_slot).reshape(-1),
+      view2voxel.reshape(b * num_mesh_slots, 4, 4),
+      (tri_valid & in_scene).reshape(-1),
+      num_meshes=b * num_mesh_slots, resolution=tuple(resolution),
+      sub_grid_sampling=sub_grid_sampling,
+      image_resolution_multiplier=image_resolution_multiplier,
+      conservative_rasterization=conservative_rasterization,
+      projection_depth_multiplier=projection_depth_multiplier,
+      max_bbox_pixels=max_bbox_pixels)
+  if fill_inside:
+    mesh_grids = fill_inside_voxels(mesh_grids, fill_rounds=fill_rounds)
+  if sub_grid_sampling:
+    mesh_grids = get_sub_grid_centers(mesh_grids)
+  labeled = (mesh_grids.reshape(b, num_mesh_slots, d, h, w)
+             * mesh_labels.to(torch.float32)[:, :, None, None, None])
+  return labeled.amax(dim=1).to(torch.int32)
+
+
+def voxelize_scene(triangles: torch.Tensor,      # float32[T, 3, 3]
+                   tri_mesh_slot: torch.Tensor,  # int32[T]
+                   tri_valid: torch.Tensor,      # bool[T]
+                   mesh_labels: torch.Tensor,    # int32[M]
+                   grid_offset: torch.Tensor,    # float32[3]
+                   **kwargs) -> torch.Tensor:
+  """Voxelizes one scene with the general rasterizer into an int32
+  [D, H, W] labeled grid. kwargs: resolution, sub_grid_sampling,
+  image_resolution_multiplier, conservative_rasterization,
+  projection_depth_multiplier, fill_inside, max_bbox_pixels, fill_rounds
+  (a static interior-fill round count; None = adaptive fixpoint)."""
+  return _general_batch(triangles[None], tri_mesh_slot[None],
+                        tri_valid[None], mesh_labels[None],
+                        grid_offset[None], **kwargs)[0]
 
 
 def packed_fgbg_eligible(**kwargs) -> bool:
@@ -115,20 +180,23 @@ def voxelize_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
   float32[B, 4, 4]).
 
   Each voxel holds the largest label of the meshes that occupy or enclose
-  it. num_label_values (the number of distinct label values, when known)
-  ≤ 256 attests that labels fit a byte: the grid is uint8; without it the
-  grid is int32 (same values). Configurations the blocked rasterizer does
-  not serve raise NotImplementedError, as does num_label_values > 256."""
+  it. Where the blocked rasterizer serves the configuration
+  (packed_fgbg_eligible) it is used: num_label_values (the number of
+  distinct label values, when known) ≤ 256 attests that labels fit a byte,
+  and the grid is uint8; without it the grid is int32 (same values). Every
+  other configuration, and num_label_values > 256, takes the general
+  rasterizer and returns int32."""
   kwargs = dict(kwargs)
   num_label_values = kwargs.pop("num_label_values", None)
-  if not packed_fgbg_eligible(**kwargs):
-    raise NotImplementedError(f"voxelization {kwargs} {_GENERAL_PATH}")
-  if num_label_values is not None and num_label_values > 256:
-    raise NotImplementedError(
-        f"num_label_values {num_label_values} > 256 {_GENERAL_PATH}")
   d, h, w = kwargs["resolution"]
   m = float(max(d, h, w))
-  label_dtype = torch.uint8 if num_label_values is not None else torch.int32
-  grid = _blocked_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
-                        grid_offsets, m, label_dtype, **kwargs)
+  if ((num_label_values is None or num_label_values <= 256)
+      and packed_fgbg_eligible(**kwargs)):
+    label_dtype = (torch.uint8 if num_label_values is not None
+                   else torch.int32)
+    grid = _blocked_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
+                          grid_offsets, m, label_dtype, **kwargs)
+  else:
+    grid = _general_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
+                          grid_offsets, **kwargs)
   return grid, _v2x(triangles.shape[0], m, triangles.device)

@@ -20,6 +20,7 @@ from corenet_tpu_torch.models.corenet import CoreNet
 from corenet_tpu_torch.ops.phased_gt import phase_permute, phased_gt
 from corenet_tpu_torch.train import gt
 from corenet_tpu_torch.train.state import TrainState
+from corenet_tpu_torch.voxel.parity import parity_voxelize_batch
 
 Batch = Dict[str, torch.Tensor]
 
@@ -63,11 +64,14 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   or, in place of the triangles, a precomputed `grid` (int32 or uint8
   [B, D, H, W]) with its `v2x` (float32[B, 4, 4], a diagonal scale).
   voxelization_kwargs go to train/gt.py (resolution defaults to the
-  step's; `algorithm` "raster" only).
+  step's); `algorithm` picks "raster" (rasterize + flood fill, the
+  default) or "parity" (exact centre sampling by ray crossings,
+  voxel/parity.py: closed meshes only).
 
-  The ground truth, in the JAX step's order: the batch's grid; else, for
-  FG_BG with a `phase_output` model, bit-packed grids straight to
-  phase-major labels (ops/phased_gt.py); else the labeled grid. The step
+  The ground truth, in the JAX step's order: the batch's grid; else the
+  parity grid; else, for FG_BG with a `phase_output` model and a
+  configuration the blocked rasterizer serves, bit-packed grids straight
+  to phase-major labels (ops/phased_gt.py); else the labeled grid. The step
   runs the model in train mode (BatchRenorm on batch statistics, updating
   its running statistics), the task's loss, the backward pass and one
   Adam update, all in place, and returns the state with global_step
@@ -78,6 +82,8 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   vox_kwargs = dict(voxelization_kwargs or {})
   vox_kwargs.setdefault("resolution", resolution)
   gt_algorithm = vox_kwargs.pop("algorithm", "raster")
+  if gt_algorithm not in ("raster", "parity"):
+    raise ValueError(f"unknown GT algorithm {gt_algorithm!r}")
   phase_loss = model.phase_output
   phase_s = 2  # the fine decoder's phased last stage: factor 2³ = 8
 
@@ -90,14 +96,13 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
         raise ValueError(f"grid {tuple(grid.shape)} does not match batch "
                          f"{expected[0]} at resolution {resolution}")
       return grid, None, batch["v2x"]
-    if gt_algorithm == "parity":
-      raise NotImplementedError(
-          "algorithm='parity' (ray-parity ground truth) comes with the "
-          "port's next slice (ROADMAP slice 4)")
-    if gt_algorithm != "raster":
-      raise ValueError(f"unknown GT algorithm {gt_algorithm!r}")
     args = (batch["triangles"], batch["tri_mesh_slot"], batch["tri_valid"],
             batch["mesh_labels"], batch["grid_offset"])
+    if gt_algorithm == "parity":
+      grid, v2x = parity_voxelize_batch(
+          *args, num_mesh_slots=batch["mesh_labels"].shape[1],
+          resolution=vox_kwargs["resolution"])
+      return grid, None, v2x
     if (phase_loss and task_type == "FG_BG"
         and gt.packed_fgbg_eligible(**vox_kwargs)):
       packed, v2x = gt.voxelize_batch_packed_fgbg(*args, **vox_kwargs)

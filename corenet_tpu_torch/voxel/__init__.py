@@ -1,2 +1,3 @@
 """Voxelization for the on-device ground truth: bit-packed grids and their
-interior fill, and the blocked triangle rasterizer."""
+interior fill, the blocked triangle rasterizer, the general rasterizer with
+the dense fill and label composition, and ray-parity voxelization."""

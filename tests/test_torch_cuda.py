@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-the port's serving forward and training step on the card against the CPU.
+the port's serving forward, training step, general ground truth (the
+rasterizer, the dense fill, ray parity) and eval metrics on the card
+against the CPU.
 
 Every test here is marked `cuda` and skips without a CUDA device. The
 file imports neither JAX nor the JAX package, so it also runs on a
@@ -16,6 +18,7 @@ import torch
 
 from corenet_tpu_torch.data.batching import (
     VOXELIZE_WINDOW_PIXELS, _pad_to_bucket, subdivide_triangles)
+from corenet_tpu_torch.eval import metrics, results
 from corenet_tpu_torch.models import skip
 from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
@@ -26,7 +29,9 @@ from corenet_tpu_torch.ops import skip_gather as op
 from corenet_tpu_torch.train import gt
 from corenet_tpu_torch.train.state import create_train_state
 from corenet_tpu_torch.train.step import compute_v2s, make_train_step
+from corenet_tpu_torch.voxel import fill
 from corenet_tpu_torch.voxel.packed import pack_grid
+from corenet_tpu_torch.voxel.parity import parity_voxelize_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -389,3 +394,95 @@ def test_phase_loss_train_step_on_card_matches_cpu(device, monkeypatch):
            op.backward_launch_count, fgbg.launch_count)
   assert tuple(a - c for a, c in zip(after, counts)) == (1, 1, 4, 4, 1)
   assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+
+
+GT_KEYS = ("triangles", "tri_mesh_slot", "tri_valid", "mesh_labels",
+           "grid_offset")
+
+
+@pytest.mark.parametrize("res", [32, 64])
+@pytest.mark.parametrize("kwargs", [
+    dict(sub_grid_sampling=True, image_resolution_multiplier=7,
+         conservative_rasterization=False),
+    dict(image_resolution_multiplier=8, conservative_rasterization=True,
+         num_label_values=300),
+    dict(image_resolution_multiplier=4, projection_depth_multiplier=2,
+         conservative_rasterization=False, fill_rounds=3)])
+def test_general_gt_on_card_equals_cpu(device, res, kwargs):
+  """The general rasterizer, the dense fill and the label compose: every
+  float32 operation is its own kernel on both devices, so the grids are
+  equal bit for bit; no block scatter is launched."""
+  batch = _cube_batch(res)
+  batch["mesh_labels"] = torch.tensor([[3, 0], [1, 2]], dtype=torch.int32)
+  batch["tri_mesh_slot"][1, ::3] = 1
+  batch["grid_offset"] = torch.tensor([[0.5, 0.5, 0.5], [0.2, 0.9, 0.4]])
+  kwargs = dict(kwargs, resolution=(res,) * 3,
+                max_bbox_pixels=VOXELIZE_WINDOW_PIXELS)
+  want, _ = gt.voxelize_batch(*(batch[k] for k in GT_KEYS), **kwargs)
+  before = scatter.launch_count
+  got, v2x = gt.voxelize_batch(*(batch[k].to(device) for k in GT_KEYS),
+                               **kwargs)
+  assert scatter.launch_count == before
+  assert got.dtype == torch.int32 and v2x.device == got.device
+  assert torch.equal(got.cpu(), want)
+  assert set(want.unique().tolist()) == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 32), (3, 65, 65, 65),
+                                   (1, 24, 40, 33)])
+def test_dense_fill_on_card_equals_cpu(device, shape):
+  gen = torch.Generator().manual_seed(sum(shape))
+  grid = (torch.rand(shape, generator=gen) < 0.12).float()
+  grid[0, 4:20, 4:20, 4:20] = 1
+  grid[0, 6:18, 6:18, 6:18] = 0  # a cavity, which fills
+  want = fill.fill_inside_voxels(grid)
+  before = fill.round_count
+  got = fill.fill_inside_voxels(grid.to(device))
+  rounds = fill.round_count - before
+  assert torch.equal(got.cpu(), want) and want[0, 12, 12, 12] == 1
+  static = fill.fill_inside_voxels(grid.to(device), fill_rounds=rounds)
+  assert torch.equal(static.cpu(), want)
+  assert bool(fill.static_rounds_converged(grid.to(device), rounds))
+
+
+@pytest.mark.parametrize("res", [32, 64])
+def test_parity_on_card_equals_cpu(device, res):
+  batch = _cube_batch(res)
+  batch["grid_offset"] = torch.tensor([[0.5, 0.5, 0.5], [0.2, 0.9, 0.4]])
+  batch["mesh_labels"] = torch.tensor([[3, 0], [1, 2]], dtype=torch.int32)
+  kwargs = dict(num_mesh_slots=2, resolution=(res,) * 3, chunk_size=500)
+  want, _ = parity_voxelize_batch(*(batch[k] for k in GT_KEYS), **kwargs)
+  got, v2x = parity_voxelize_batch(*(batch[k].to(device) for k in GT_KEYS),
+                                   **kwargs)
+  assert torch.equal(got.cpu(), want) and v2x.device == got.device
+  assert want[0, res // 2, res // 2, res // 2] == 3 and want[0, 1, 1, 1] == 0
+
+
+@pytest.mark.parametrize("res", [32, 64])
+def test_confusion_matrix_and_labels_on_card_equal_cpu(device, res):
+  gen = torch.Generator().manual_seed(res)
+  pmf = torch.rand((2, res, res, res, 4), generator=gen)
+  # Exact ties, between all classes and between the last two: the first
+  # maximum wins on both devices.
+  pmf[0, 0] = 0.25
+  pmf[0, 1, :, :, 2:] = 2.0
+  grid = torch.randint(0, 4, (2, res, res, res), generator=gen,
+                       dtype=torch.uint8)
+  fg = torch.tensor([1, 300], dtype=torch.int32)
+  for task_type, classes in (("SEMANTIC", 4), ("FG_BG", 4 * 300)):
+    pred, labels = results.extract_labels(pmf, grid, fg, task_type)
+    want = metrics.confusion_matrix(pred, labels, classes)
+    pred_c, labels_c = results.extract_labels(
+        pmf.to(device), grid.to(device), fg.to(device), task_type)
+    assert torch.equal(pred_c.cpu(), pred)
+    assert torch.equal(labels_c.cpu(), labels)
+    got = metrics.confusion_matrix(pred_c, labels_c, classes)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert int(want.sum()) == 2 * res ** 3
+  pred, _ = results.extract_labels(pmf.to(device), grid.to(device),
+                                   fg.to(device), "SEMANTIC")
+  assert bool((pred[0, 0] == 0).all()) and bool((pred[0, 1] == 2).all())
+  acc = results.QuantitativeResults(["__void__", "a", "b", "c"], "SEMANTIC")
+  acc.add_batch(pmf.to(device), grid.to(device), fg,
+                valid=np.array([True, False]))
+  assert acc.confusion.sum() == res ** 3

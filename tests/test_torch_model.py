@@ -118,7 +118,7 @@ def _skip_matrices(res):
 def test_port_imports_neither_jax_nor_the_jax_package():
   files = sorted((REPO / "corenet_tpu_torch").rglob("*.py"))
   files.append(REPO / "chip_smoke.py")
-  banned = {"jax", "jaxlib", "flax", "optax", "corenet_tpu"}
+  banned = {"jax", "jaxlib", "flax", "optax", "corenet_tpu", "pandas"}
   offenders = []
   for path in files:
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -132,6 +132,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     if n.split(".")[0] in banned]
   assert len(files) > 10
   assert not offenders, offenders
+
+
+def test_importing_every_port_module_loads_neither_jax_nor_pandas():
+  """A fresh interpreter imports every module of the port: none of JAX, the
+  JAX package, pandas or PIL gets loaded on the way."""
+  import subprocess
+  import sys
+  modules = sorted(
+      ".".join(path.relative_to(REPO).with_suffix("").parts).removesuffix(
+          ".__init__")
+      for path in (REPO / "corenet_tpu_torch").rglob("*.py"))
+  assert "corenet_tpu_torch.eval.pipeline" in modules and len(modules) > 30
+  code = (
+      "import importlib, sys\n"
+      f"for name in {modules!r}:\n"
+      "  importlib.import_module(name)\n"
+      "loaded = {m.split('.')[0] for m in sys.modules}\n"
+      "bad = loaded & {'jax', 'jaxlib', 'flax', 'optax', 'corenet_tpu', "
+      "'pandas', 'PIL'}\n"
+      "assert not bad, bad\n")
+  subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                 timeout=300)
 
 
 def test_skip_indices_and_gather_match_jax():

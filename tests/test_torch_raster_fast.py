@@ -202,11 +202,18 @@ def test_blocked_eligibility_matches_jax_and_the_rest_raises():
   triangles, slot, valid, offsets = _scenes(32)
   inputs = _torch(triangles, slot, valid, np.ones((2, 2), np.int32),
                   offsets)
-  with pytest.raises(NotImplementedError, match="general rasterizer"):
+  # What the blocked rasterizer does not serve takes the general one
+  # (tests/test_torch_voxelize.py holds it against JAX): int32 grids,
+  # without a launch of the block scatter. An even multiplier cannot sample
+  # the sub-grid, so that configuration raises.
+  general, _ = gt.voxelize_batch(*inputs, **dict(_kwargs(32, False),
+                                                 num_label_values=300))
+  blocked, _ = gt.voxelize_batch(*inputs, **dict(_kwargs(32, False),
+                                                 num_label_values=3))
+  assert general.dtype == torch.int32 and blocked.dtype == torch.uint8
+  assert 0.95 < float(general.sum()) / float(blocked.sum()) < 1.05
+  with pytest.raises(ValueError, match="odd"):
     gt.voxelize_batch(*inputs, **dict(_kwargs(32, False),
                                       sub_grid_sampling=True))
-  with pytest.raises(NotImplementedError, match="general rasterizer"):
-    gt.voxelize_batch(*inputs, **dict(_kwargs(32, False),
-                                      num_label_values=300))
   assert not gt.packed_fgbg_eligible(**dict(_kwargs(32, False),
                                             max_bbox_pixels=None))

@@ -3,10 +3,11 @@ against the JAX package's, on the CPU.
 
 FG_BG steps at 32³, batch 2, 64² images, from flax-initialized weights
 with random BatchRenorm running statistics: on a batch that carries its
-ground-truth grid (the JAX step's host-GT branch), and with the phase
-loss on a batch of triangles voxelized in the step (the default branch
-of the JAX step: blocked rasterizer, packed fill, phased GT). The JAX
-step runs with
+ground-truth grid (the JAX step's host-GT branch), with the phase loss on
+a batch of triangles voxelized in the step (the default branch of the JAX
+step: blocked rasterizer, packed fill, phased GT), with y1's kind of
+voxelization (sub-grid sampling: the general rasterizer and the dense
+fill) and with the ray-parity ground truth. The JAX step runs with
 an optimizer that keeps the gradients in its state and leaves the
 parameters alone, so one compiled step gives its loss, gradients and new
 batch statistics. Loss and statistics agree within 1e-4 relative. The
@@ -166,6 +167,41 @@ def test_fgbg_train_step_matches_jax():
   _assert_step_matches(ref, model, state, metrics)
 
 
+# y1's kind of voxelization (configs/models/y1.json5: sub-grid sampling, an
+# odd multiplier), at a small multiplier, and the ray-parity ground truth.
+GENERAL_GT = {
+    "sub_grid": dict(sub_grid_sampling=True, image_resolution_multiplier=5,
+                     conservative_rasterization=False,
+                     projection_depth_multiplier=1, max_bbox_pixels=WINDOW,
+                     fill_rounds=None, num_label_values=2),
+    "parity": dict(VOX_KWARGS, algorithm="parity"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL_GT))
+def test_phase_loss_step_on_general_and_parity_gt_matches_jax(case):
+  """The step on ground truth from the general rasterizer (as y1 trains)
+  and from ray parity: the labeled grid goes through the phase
+  permutation, as in the JAX step."""
+  kwargs = GENERAL_GT[case]
+  variables = _variables(RES[0])
+  batch = _triangle_batch()
+  # Off the sample boundaries, where the two packages' grids are equal
+  # (tests/test_torch_voxelize.py).
+  batch["triangles"] = batch["triangles"] + np.array(
+      [0.0031, 0.0047, 0.0023], np.float32)
+  ref = _jax_step(variables, batch, _phase_jax_model(), kwargs)
+
+  model = CoreNet(CoreNetConfig(DecoderConfig(RES, 2)), phase_output=True)
+  model.load_state_dict(state_dict_from_jax(variables))
+  state = create_train_state(model, device="cpu")
+  step = make_train_step(state.model, state.optimizer, "FG_BG", RES,
+                         voxelization_kwargs=kwargs)
+  state, metrics = step(state, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+  _assert_step_matches(ref, model, state, metrics)
+
+
 def test_phase_loss_step_on_device_gt_matches_jax():
   """The JAX package's default training branch: triangles voxelized in
   the step (blocked rasterizer, packed fill, OR over labeled slots),
@@ -249,9 +285,8 @@ def _feeds_batch_renorm(name):
 
 
 def test_train_step_needs_the_grid():
-  """A grid must match the batch and resolution; without one, the
-  configurations the port cannot voxelize yet raise NotImplementedError
-  and leave the state alone."""
+  """A grid must match the batch and resolution; an unknown GT algorithm
+  is refused when the step is built, and leaves the state alone."""
   model = CoreNet(CoreNetConfig(DecoderConfig(RES, 2)))
   model.reset_parameters(torch.Generator().manual_seed(0))
   state = create_train_state(model, device="cpu")
@@ -259,16 +294,16 @@ def test_train_step_needs_the_grid():
   batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
   with pytest.raises(ValueError, match="does not match"):
     step(state, dict(batch, grid=batch["grid"][:, :16]))
+  with pytest.raises(ValueError, match="unknown GT algorithm"):
+    make_train_step(state.model, state.optimizer, "FG_BG", RES,
+                    voxelization_kwargs=dict(VOX_KWARGS, algorithm="octree"))
+  # An even multiplier cannot sample the sub-grid: the rasterizer says so.
   triangles = {k: torch.from_numpy(v) for k, v in _triangle_batch().items()}
-  for kwargs, match in ((dict(VOX_KWARGS, algorithm="parity"), "parity"),
-                        (dict(VOX_KWARGS, sub_grid_sampling=True),
-                         "general rasterizer"),
-                        (dict(VOX_KWARGS, max_bbox_pixels=64),
-                         "general rasterizer")):
-    step = make_train_step(state.model, state.optimizer, "FG_BG", RES,
-                           voxelization_kwargs=kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-      step(state, triangles)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", RES,
+                         voxelization_kwargs=dict(VOX_KWARGS,
+                                                  sub_grid_sampling=True))
+  with pytest.raises(ValueError, match="odd"):
+    step(state, triangles)
   assert state.global_step == 0
   assert all(p.grad is None for p in model.parameters())
 
