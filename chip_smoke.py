@@ -30,7 +30,7 @@ Phases; the run fails at the first that fails:
               weights from a seed, through super_resolution_from_model.
               Checks the PMF (shape, finite, sums to 1), that each forward
               launched the skip kernel once per skip (4), and that the
-              logits equal those of the same forward with the plain skips.
+              PMF equals that of the same forward with the plain skips.
               Times 30 forwards one by one (closed loop, one batch in
               flight) and profiles one more (device busy time, the kernels
               with the most device time).
@@ -102,6 +102,23 @@ Phases; the run fails at the first that fails:
               more. Then parity_voxelize_batch at 128³ on the phase-6
               batch: card against CPU, its difference from raster + fill,
               its time.
+  9. serve-cli serving from a checkpoint file, as a user serves: the
+              seeded h7 model of phase 7 written through the port's
+              CheckpointManager (a `.cpt` whose metadata holds a
+              full_config with phase 7's eval, asking for 4 qualitative
+              results, and the classes) and read back into a fresh CoreNet
+              on the card (logits equal, torch.equal; the file's MB and the
+              write and read seconds); `python -m corenet_tpu_torch.cli.eval`
+              (its main) on phase 7's seeded dataset: the CSV parses, the
+              mean IoU equals EvalPipeline.run_eval's on the same weights
+              (deterministic cuDNN), K1 4 and K3 1 launches per batch,
+              exactly 4 img_*.png tiles that decode to (1280, 1280, 3), the
+              per-class IoU scalars in the summary JSONL; the time per tile
+              (host clock: extraction on the host, rendering on the card,
+              PNG) and a held eval batch with and without its 4 tiles; the
+              renderers on the card against the CPU (the subdivided cube
+              shell, a 128³ GT grid: L1 < 1.0, the share of differing
+              pixels); the demo CLI on one scene (a (1280, 1280, 3) PNG).
 
 Float32 throughout: TF32 is switched off for convolutions and matmuls, so
 the float32 path computes in float32 on the card as on the CPU.
@@ -330,31 +347,24 @@ def serve(torch, op, label, infer, args, shape):
   return launches, ms
 
 
-def check_plain_skips(torch, op, fgbg, label, model, infer, args):
-  """The path's logits (the decoder's output, caught by a hook) with the
-  kernel and with the plain skips: bit-identical, since the gather is a
-  copy. cuDNN is held to deterministic algorithms for both so that no
-  convolution sums in a run-dependent order."""
-  logits = []
-  hook = model.decoder.register_forward_hook(
-      lambda module, inputs, out: logits.append(out))
+def check_plain_skips(torch, op, fgbg, label, infer, args):
+  """The path's PMF with the kernel and with the plain skips:
+  bit-identical, since the gather is a copy. cuDNN is held to
+  deterministic algorithms for both so that no convolution sums in a
+  run-dependent order."""
   torch.backends.cudnn.deterministic = True
   try:
-    infer(*args)
+    kernel = infer(*args)
     with plain_versions(op, fgbg):
-      infer(*args)
+      plain = infer(*args)
   finally:
     torch.backends.cudnn.deterministic = False
-    hook.remove()
-  if len(logits) != 2:
-    raise AssertionError(f"{label}: {len(logits)} decoder calls, expected 2")
-  kernel, plain = logits
   if not torch.equal(kernel, plain):
     diff = float((kernel - plain).abs().max())
-    raise AssertionError(f"{label} logits with the kernel differ from the "
-                         f"plain skips by {diff}")
-  log(f"{label} logits {list(kernel.shape)} with the kernel equal those with "
-      f"the plain skips (max |logit| {float(kernel.abs().max()):.4f})")
+    raise AssertionError(f"{label} PMF with the kernel differs from the "
+                         f"plain skips' by {diff}")
+  log(f"{label} PMF {list(kernel.shape)} with the kernel equals the one with "
+      f"the plain skips (max {float(kernel.max()):.4f})")
 
 
 def bf16_ulp(torch, x):
@@ -1717,6 +1727,269 @@ def parity_row(torch, image, camera, dev):
           "only_parity": only_parity}
 
 
+CLI_TILES = 4  # phase 9's num_qualitative_results
+TILE_SHAPE = (5 * IMAGE_HW, 5 * IMAGE_HW, 3)  # 5 cameras × 5 columns of 256²
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, spans):
+  """Wraps module.<name> for each name so that every call appends
+  (name, host seconds) to `spans`."""
+  saved = {name: getattr(module, name) for name in names}
+
+  def timing(name, fn):
+    def wrapper(*args, **kwargs):
+      start = time.perf_counter()
+      try:
+        return fn(*args, **kwargs)
+      finally:
+        spans.append((name, time.perf_counter() - start))
+    return wrapper
+
+  for name, fn in saved.items():
+    setattr(module, name, timing(name, fn))
+  try:
+    yield
+  finally:
+    for name, fn in saved.items():
+      setattr(module, name, fn)
+
+
+def serve_cli(torch, mods, CoreNet, config, image, camera, v2x, dev):
+  """Phase 9: serving from a `.cpt` file through the eval and demo CLIs,
+  with qualitative results. Returns the eval CLI's launches and the
+  timings."""
+  import numpy as np
+  from corenet_tpu_torch.cli import demo as demo_cli
+  from corenet_tpu_torch.cli import eval as eval_cli
+  from corenet_tpu_torch.config import config as cfg
+  from corenet_tpu_torch.data.batching import subdivide_triangles
+  from corenet_tpu_torch.eval import pipeline as pipeline_mod
+  from corenet_tpu_torch.eval import qualitative as qualitative_mod
+  from corenet_tpu_torch.eval import results as results_mod
+  from corenet_tpu_torch.eval.super_resolution import (
+      super_resolution_from_model)
+  from corenet_tpu_torch.train.checkpoint import (
+      CheckpointManager, CheckpointReader)
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import compute_v2s
+  from corenet_tpu_torch.utils.png import decode_png
+  from corenet_tpu_torch.viz import camera as camera_mod
+  from corenet_tpu_torch.viz import renderer
+  from corenet_tpu_torch.viz.colors import DEFAULT_COLOR_PALETTE
+  batches = -(-EVAL_SCENES // BATCH)
+  out = {}
+  with tempfile.TemporaryDirectory() as root:
+    manifest, meshes_dir = write_eval_dataset(root, SEED + 50)
+    eval_dict = h7_eval_config(manifest, meshes_dir, "FG_BG")
+    eval_dict.update(num_qualitative_results=CLI_TILES,
+                     num_qualitative_results_in_tensor_board=1)
+    eval_config = cfg.config_from_dict(cfg.EvalConfig, eval_dict)
+    h7, h7_state = seeded_model(torch, CoreNet, config, SEED)
+    reference = pipeline_mod.EvalPipeline(
+        eval_config, os.path.join(root, "ref"),
+        super_resolution_from_model(h7, h7_state, OUTPUT_RES, device=dev),
+        write_qualitative=False, device=dev)
+    classes = list(reference.classes)
+
+    # 1. The checkpoint, written and read back into a fresh model.
+    full_config = {
+        "string_templates": [], "output_path": os.path.join(root, "train"),
+        "train": {"data": eval_dict["data"],
+                  "resnet50_imagenet_checkpoint": ""},
+        "eval": [{"start_step": 0, "interval": 10 ** 9,
+                  "persistent_checkpoint": False, "config": eval_dict}]}
+    state = create_train_state(h7, device=dev)
+    cpt_dir = os.path.join(root, "cpt")
+    start = time.perf_counter()
+    path = CheckpointManager(cpt_dir).save_state(
+        state, {"full_config": full_config, "classes": classes})
+    write_s = time.perf_counter() - start
+    fresh = create_train_state(CoreNet(config), device=dev)
+    start = time.perf_counter()
+    restored, meta, _ = CheckpointReader(cpt_dir).read_last_checkpoint(fresh)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - start
+    size_mb = os.path.getsize(path) / 2 ** 20
+    v2s = compute_v2s(camera.to(dev), v2x.to(dev))
+    offsets = torch.full((BATCH, 3), 0.5, device=dev)
+    torch.backends.cudnn.deterministic = True
+    try:
+      with torch.inference_mode():
+        logits = [m.eval()(image.to(dev), v2s, offsets)
+                  for m in (state.model, restored.model)]
+    finally:
+      torch.backends.cudnn.deterministic = False
+    if not torch.equal(*logits) or meta["classes"] != classes:
+      raise AssertionError(
+          f"logits of the read-back .cpt differ from the original's by "
+          f"{float((logits[0] - logits[1]).abs().max())}")
+    log(f"serve-cli: {os.path.basename(path)} {size_mb:.1f} MB (h7 weights, "
+        f"statistics and Adam moments) written in {write_s:.3f} s, read into "
+        f"a fresh CoreNet on the card in {read_s:.3f} s; its logits "
+        f"{list(logits[0].shape)} equal the original's (torch.equal)")
+    out.update(cpt_mb=size_mb, cpt_write_s=write_s, cpt_read_s=read_s)
+    del state, fresh, restored, logits
+    torch.cuda.empty_cache()
+
+    # 2. The eval CLI against run_eval on the same weights.
+    cli_out = os.path.join(root, "cli")
+    spans = []
+    torch.backends.cudnn.deterministic = True
+    try:
+      ref_iou = reference.run_eval(0)
+      with timed_calls(qualitative_mod.QualitativeResults, ["add_scene"],
+                       spans), \
+          timed_calls(qualitative_mod, ["visualize_scene_output"], spans), \
+          timed_calls(renderer, ["render_mesh", "render_voxel_grid"], spans):
+        torch.cuda.synchronize()
+        zero_counts(*mods)
+        start = time.perf_counter()
+        cli_iou = eval_cli.main([f"--checkpoint_path={path}",
+                                 f"--output_path={cli_out}"])["full_eval"]
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - start
+        launches = launch_counts(*mods)
+    finally:
+      torch.backends.cudnn.deterministic = False
+    if launches != (4 * batches, 0, 0, batches, 0):
+      raise AssertionError(f"the eval CLI launched (skip_gather, its "
+                           f"backward, fgbg_sums, block_scatter_or, "
+                           f"phased_gt) {launches} times in {batches} "
+                           f"batches, expected 4 and 1 per batch")
+    if cli_iou != ref_iou:
+      raise AssertionError(f"the eval CLI's mean IoU {cli_iou} is not "
+                           f"run_eval's {ref_iou}")
+    result_dir = os.path.join(cli_out, "full_eval", "0")
+    with open(os.path.join(result_dir, "voxel_metrics.csv"),
+              newline="") as text:
+      rows = list(csv.reader(text))
+    values = [float(v) if v else math.nan for row in rows[1:]
+              for v in row[1:]]
+    if (rows[0][:2] != ["", "__void__"] or len(rows) != 4
+        or len(values) != 3 * len(rows[0][1:])):
+      raise AssertionError(f"the CLI's voxel_metrics.csv: {rows}")
+    tiles = sorted(name for name in os.listdir(result_dir)
+                   if name.startswith("img_") and name.endswith(".png"))
+    shapes = [decode_png(open(os.path.join(result_dir, name), "rb").read()
+                         ).shape for name in tiles]
+    if len(tiles) != CLI_TILES or set(shapes) != {TILE_SHAPE}:
+      raise AssertionError(f"the CLI wrote tiles {tiles} of {shapes}")
+    summary = os.path.join(cli_out, "tb", "full_eval", "scalars.jsonl")
+    with open(summary) as text:
+      tags = {json.loads(line)["tag"] for line in text}
+    if not {f"IoU/{name}" for name in classes} <= tags:
+      raise AssertionError(f"the summary JSONL holds {sorted(tags)}")
+    per_tile = [seconds for name, seconds in spans if name == "add_scene"]
+    visual = [seconds for name, seconds in spans
+              if name == "visualize_scene_output"]
+    render = sum(seconds for name, seconds in spans
+                 if name.startswith("render_")) / len(per_tile)
+    tile_ms = statistics.median(per_tile) * 1e3
+    split = {"render_ms": render * 1e3,
+             "extract_ms": (statistics.mean(visual) - render) * 1e3,
+             "png_ms": (statistics.mean(per_tile) - statistics.mean(visual))
+                       * 1e3}
+    log(f"serve-cli eval CLI: mean IoU {cli_iou:.6f} = run_eval's on the "
+        f"same weights (deterministic cuDNN); launches (skip_gather, "
+        f"block_scatter_or) ({launches[0]}, {launches[3]}) in {batches} "
+        f"batches = (4, 1) per batch; voxel_metrics.csv parses; {len(tiles)} "
+        f"tiles {shapes[0]}; per-class IoU in {os.path.basename(summary)}; "
+        f"run {cli_s:.3f} s. Per tile (host clock, median of {len(per_tile)}):"
+        f" {tile_ms:.3f} ms = extraction on the host "
+        f"{split['extract_ms']:.3f} + rendering on the card "
+        f"{split['render_ms']:.3f} ({len(spans) - 2 * len(per_tile)} "
+        f"renders) + PNG {split['png_ms']:.3f} (means)")
+    out.update(cli_s=cli_s, tile_ms=tile_ms, tile_split_ms=split,
+               tiles_ms=[v * 1e3 for v in per_tile])
+
+    # A held batch with and without its qualitative results.
+    loader = pipeline_mod.DataLoader(
+        reference.dataset_manager.create_dataset(local_seed=0),
+        batch_size=BATCH, num_workers=2, worker_processes=False,
+        max_edge_view=(pipeline_mod.VOXELIZE_WINDOW_PIXELS - 4) / 8
+        / OUTPUT_RES[0])
+    batches_of = iter(loader)
+    held = [next(batches_of)]
+    batches_of.close()
+
+    def one_batch(tiles):
+      qualitative = qualitative_mod.QualitativeResults(
+          os.path.join(root, "held"), tiles, 0, device=dev) if tiles else None
+      reference._run_batches(held, reference._cached_gt_fn, "FG_BG",
+                             OUTPUT_RES, results_mod.QuantitativeResults(
+                                 classes, "FG_BG"), qualitative)
+      torch.cuda.synchronize()
+
+    held_ms = {}
+    for tiles in (0, BATCH, BATCH, 0):
+      start = time.perf_counter()
+      one_batch(tiles)
+      held_ms.setdefault(tiles, []).append(
+          (time.perf_counter() - start) * 1e3)
+    held_ms = {k: min(v) for k, v in held_ms.items()}
+    log(f"serve-cli: one held eval batch of {BATCH} (host clock, the faster "
+        f"of two): {held_ms[0]:.3f} ms without qualitative results, "
+        f"{held_ms[BATCH]:.3f} ms with {BATCH} tiles")
+    out.update(held_batch_ms=held_ms[0], held_batch_tiles_ms=held_ms[BATCH])
+
+    # 3. The renderers on the card against the CPU.
+    shell = subdivide_triangles(
+        cube_shell(), (pipeline_mod.VOXELIZE_WINDOW_PIXELS - 4) / 8
+        / OUTPUT_RES[0])
+    colors = np.tile(DEFAULT_COLOR_PALETTE[1], (len(shell), 1))
+    cam = camera_mod.default_camera([0, 0, 0], [1, 1, 1])
+    inputs = {k: torch.from_numpy(v).to(dev)
+              for k, v in held[0][0].step_inputs("FG_BG").items()}
+    grid = reference._cached_gt_fn(
+        *(inputs[k] for k in pipeline_mod.GT_KEYS))[0][0].cpu().numpy()
+    rows = {}
+    for name, draw in (
+        ("cube shell", lambda d: renderer.render_mesh(
+            shell, colors, cam, (IMAGE_HW, IMAGE_HW), device=d)),
+        ("128³ GT grid", lambda d: renderer.render_voxel_grid(
+            grid, image_size=(IMAGE_HW, IMAGE_HW), device=d))):
+      images, seconds = [], []
+      for d in (dev, dev, "cpu"):
+        start = time.perf_counter()
+        images.append(draw(d))
+        seconds.append(time.perf_counter() - start)
+      l1 = float(np.abs(images[1].astype(np.int32) - images[2]).mean())
+      share = float((images[1] != images[2]).any(-1).mean())
+      if not l1 < 1.0 or (images[1] == 255).all():
+        raise AssertionError(f"{name}: card and CPU renders differ by L1 "
+                             f"{l1}")
+      rows[name] = {"l1": l1, "differing_pixels": share,
+                    "card_ms": seconds[1] * 1e3, "cpu_ms": seconds[2] * 1e3}
+      log(f"serve-cli renderer, {name} at {IMAGE_HW}²: card and CPU within "
+          f"L1 {l1:.4f} (< 1.0), {share:.4%} of the pixels differ; card "
+          f"{seconds[1] * 1e3:.3f} ms (first call {seconds[0] * 1e3:.3f}), "
+          f"CPU {seconds[2] * 1e3:.3f} ms (host clock)")
+    log(f"serve-cli renderer: the cube shell has {len(shell)} triangles; the "
+        f"grid's foreground {float((grid > 0).mean()):.4f}")
+    out["renderer"] = rows
+
+    # 4. The demo CLI on one scene.
+    png_path = os.path.join(root, "reconstruction.png")
+    zero_counts(*mods)
+    start = time.perf_counter()
+    demo_cli.main([f"--scene={os.path.join(root, 'scene_000.npz')}",
+                   f"--meshes_dir={meshes_dir}", f"--checkpoint={path}",
+                   f"--output={png_path}",
+                   f"--resolution={OUTPUT_RES[0]}"])
+    demo_s = time.perf_counter() - start
+    demo_launches = launch_counts(*mods)
+    with open(png_path, "rb") as data:
+      shape = decode_png(data.read()).shape
+    if shape != TILE_SHAPE:
+      raise AssertionError(f"the demo wrote a tile of {shape}")
+    log(f"serve-cli demo CLI: reconstruction.png {shape} in {demo_s:.3f} s; "
+        f"launches (skip_gather, block_scatter_or) ({demo_launches[0]}, "
+        f"{demo_launches[3]})")
+    out.update(demo_s=demo_s, demo_launches=demo_launches)
+  return launches, out
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1836,7 +2109,7 @@ def main() -> int:
   infer = super_resolution_from_model(h7, h7_state, OUTPUT_RES, device="cuda")
   main_launches, h7_ms = serve(torch, op, "h7", infer, args,
                                (BATCH,) + OUTPUT_RES + (2,))
-  check_plain_skips(torch, op, fgbg, "h7", h7, infer, args)
+  check_plain_skips(torch, op, fgbg, "h7", infer, args)
   del h7, infer
   torch.cuda.empty_cache()
 
@@ -1846,7 +2119,7 @@ def main() -> int:
   infer = super_resolution_from_model(y1, y1_state, Y1_NATIVE, device="cuda")
   _, y1_ms = serve(torch, op, "y1", infer, args,
                      (BATCH,) + OUTPUT_RES + (2,))
-  check_plain_skips(torch, op, fgbg, "y1", y1, infer, args)
+  check_plain_skips(torch, op, fgbg, "y1", infer, args)
   pmf = infer(*args)
 
   sequential = super_resolution_from_model(y1, y1_state, Y1_NATIVE,
@@ -1877,9 +2150,11 @@ def main() -> int:
   small_off = offsets[:2]
   cpu_model = CoreNet(y1_config)
   cpu_model.load_state_dict(y1_state)
+  card_model = copy.deepcopy(cpu_model).to(dev)
   with torch.inference_mode():
     ref = cpu_model.eval()(small_image, small_v2s, small_off)
-    got = y1(small_image.to(dev), small_v2s.to(dev), small_off.to(dev)).cpu()
+    got = card_model.eval()(small_image.to(dev), small_v2s.to(dev),
+                            small_off.to(dev)).cpu()
   scale = float(ref.abs().max())
   cpu_diff = float((got - ref).abs().max())
   if not torch.allclose(got, ref, rtol=2e-3, atol=2e-3 * scale):
@@ -1887,7 +2162,7 @@ def main() -> int:
                          f"(max |logit| {scale})")
   log(f"y1 logits on the card match the CPU within {cpu_diff:.2e} "
       f"(max |logit| {scale:.4f}; tolerance 2e-3 relative)")
-  del y1, y1_state, cpu_model, ref, got
+  del y1, y1_state, cpu_model, card_model, ref, got
   torch.cuda.empty_cache()
 
   # 5. Training, h7, then a small step on the card against the CPU.
@@ -1918,14 +2193,23 @@ def main() -> int:
           Y1_NATIVE, 2, last_upscale_factor=2, latent_channels=64,
           skip_fraction=0.75)), image, camera, dev)
   parity = parity_row(torch, image, camera, dev)
+  torch.cuda.empty_cache()
+
+  # 9. Serving from a checkpoint file: the eval and demo CLIs.
+  cli_launches, cli_times = serve_cli(
+      torch, mods, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)),
+      image, camera, v2x, dev)
 
   # Launches per path, each counted from zero just before the path ran:
-  # one serving forward, one training step, one eval run of 3 batches.
+  # one serving forward, one training step, one eval run of 3 batches, one
+  # eval CLI run of 3 batches.
   def by_path(i, serve=None, train=None):
     return {"h7 serve, 1 forward": serve, "h7 train, 1 step": train,
             "h7 train-gt, 1 step": gt_launches[i],
             f"h7 eval, {-(-EVAL_SCENES // BATCH)} batches": eval_launches[i],
-            "y1 train, 1 step": y1_launches[i]}
+            "y1 train, 1 step": y1_launches[i],
+            f"h7 eval CLI, {-(-EVAL_SCENES // BATCH)} batches":
+                cli_launches[i]}
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -2001,6 +2285,7 @@ def main() -> int:
            gt_launches[4], k4_row))]
   gt_entries[0]["gt_split"] = gt_split
   gt_entries[0]["eval_h7"] = eval_times
+  gt_entries[0]["serve_cli"] = cli_times
   entry["y1_general_gt_split"] = y1_split
   entry["parity_gt_128"] = parity
   log(f"h7 scenes/s {BATCH * 1e3 / h7_ms:.3f}; y1 scenes/s "

@@ -19,18 +19,30 @@ counterpart is the file of the same path there:
   train/     training state and step (on ground-truth grids from the
              batch or voxelized in the step, with the phase loss), the
              on-device ground truth, the voxel → screen matrix, the eval
-             forward
-  eval/      super-resolution inference; the eval pipeline with its
-             metrics and results (confusion matrix, IoU, the CSV)
-  utils/     rounding and tiling helpers, local + gs:// file I/O
+             forward; `.cpt` checkpoints (the JAX package's container and
+             a msgpack codec of their own)
+  eval/      super-resolution inference and its factory; the eval pipeline
+             with its metrics and results (confusion matrix, IoU, the
+             CSV) and qualitative results (rendered tiles)
+  geom/      4x4 transform algebra (numpy)
+  viz/       cameras, isosurfaces, artifacts and tiles on the host; the
+             mesh rasterizer and voxel raycaster as tensor code on the
+             device
+  cli/       the eval and demo entry points (python -m ...)
+  utils/     rounding and tiling helpers, local + gs:// file I/O, flags,
+             summaries (JSONL, TensorBoard when it imports), PNG bytes,
+             the device check
 
 Ported so far: the serving path; the training step, on host ground truth
 or on ground truth voxelized in the step (the blocked rasterizer with the
 phase loss for FG_BG, the general rasterizer for every other
 configuration, ray parity); the eval pipeline from a dataset manifest to
-`voxel_metrics.csv`. f32, fine (unpacked) execution, one process. Public
-functions keep the JAX package's channel-last layouts. Nothing here
-imports JAX, corenet_tpu or pandas; json5 and PIL are optional.
+`voxel_metrics.csv` and the qualitative tiles; serving from a `.cpt` file
+through the eval and demo CLIs. f32, fine (unpacked) execution, one
+process. Public functions keep the JAX package's channel-last layouts.
+Nothing here imports JAX, corenet_tpu, pandas, msgpack or tensorboard
+at import time; json5, PIL (image decoding) and tensorboard are
+optional.
 
 An eval on the CPU, from a manifest to the mean IoU:
 
@@ -38,7 +50,7 @@ An eval on the CPU, from a manifest to the mean IoU:
   from corenet_tpu_torch.eval.pipeline import EvalPipeline
   eval_config = config.config_from_dict(config.EvalConfig, {...})
   pipeline = EvalPipeline(eval_config, output_dir, inference_fn,
-                          write_qualitative=False, device="cpu")
+                          device="cpu")
   mean_iou = pipeline.run_eval(global_step=0)
 """
 

@@ -24,11 +24,17 @@ import torch
 def confusion_matrix(predicted: torch.Tensor, gt: torch.Tensor,
                      num_classes: int) -> torch.Tensor:
   """Per-batch confusion matrix int64[num_classes, num_classes] on the
-  inputs' device; rows = GT, columns = predicted. Labels outside
-  [0, num_classes) raise."""
-  index = (gt.long() * num_classes + predicted.long()).reshape(-1)
-  counts = torch.bincount(index, minlength=num_classes * num_classes)
-  if counts.numel() != num_classes * num_classes:
+  inputs' device; rows = GT, columns = predicted. A label outside
+  [0, num_classes), in either input, raises: such a pair is counted in one
+  extra bin past the matrix, so the `bincount`'s length shows it without a
+  read of its own from the device."""
+  n = num_classes * num_classes
+  gt, predicted = gt.long(), predicted.long()
+  inside = ((gt >= 0) & (gt < num_classes) &
+            (predicted >= 0) & (predicted < num_classes))
+  index = torch.where(inside, gt * num_classes + predicted, n).reshape(-1)
+  counts = torch.bincount(index, minlength=n)
+  if counts.numel() != n:
     raise ValueError(f"a label lies outside the {num_classes} classes")
   return counts.reshape(num_classes, num_classes)
 

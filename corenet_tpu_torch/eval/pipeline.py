@@ -8,9 +8,10 @@ confusion matrix accumulates, `voxel_metrics.csv` and the scalar
 summaries are written, and `run_eval` returns the mean IoU.
 
 Batches are padded to the configured batch size, with a validity mask for
-the last one. One process evaluates the whole dataset for now; qualitative
-results (eval/qualitative.py of the JAX package) are not ported yet and
-raise.
+the last one. The first `num_qualitative_results` scenes are also rendered
+(eval/qualitative.py) into `img_*.png` tiles beside the CSV: only those
+scenes' PMFs and grids are copied to the host. One process evaluates the
+whole dataset for now.
 """
 
 from __future__ import annotations
@@ -19,15 +20,18 @@ import functools
 import logging
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from corenet_tpu_torch.config import config as cfg
 from corenet_tpu_torch.data.batching import VOXELIZE_WINDOW_PIXELS
 from corenet_tpu_torch.data.loader import DataLoader
 from corenet_tpu_torch.data.manager import DatasetManager
+from corenet_tpu_torch.eval.qualitative import QualitativeResults
 from corenet_tpu_torch.eval.results import QuantitativeResults
 from corenet_tpu_torch.train import gt as gt_lib
 from corenet_tpu_torch.utils import fs
+from corenet_tpu_torch.utils.device import checked_device
 
 log = logging.getLogger(__name__)
 
@@ -58,10 +62,7 @@ class EvalPipeline:
                write_qualitative: bool = True,
                summary_writer=None,
                device="cuda"):
-    self.device = torch.device(device)
-    if self.device.type == "cuda" and not torch.cuda.is_available():
-      raise RuntimeError(
-          "no CUDA device: pass device='cpu' to run on the CPU")
+    self.device = checked_device(device)
     self.config = eval_config
     self.output_dir = output_dir
     self.inference_fn = inference_fn
@@ -88,12 +89,6 @@ class EvalPipeline:
     vc = self.config.data.voxelization_config
     task_type = vc.task_type.value
     resolution = vc.resolution.as_tuple()
-    if self.write_qualitative and self.config.num_qualitative_results > 0:
-      raise NotImplementedError(
-          "qualitative results need the renderer (viz/), which comes with "
-          "the port's slice 8: pass write_qualitative=False or set "
-          "num_qualitative_results to 0")
-
     dataset = self.dataset_manager.create_dataset(local_seed=global_step)
     if max_scenes is not None:
       dataset = dataset[:max_scenes]
@@ -103,6 +98,13 @@ class EvalPipeline:
              self.config.name, global_step, len(shard), lo, hi, len(dataset))
 
     quantitative = QuantitativeResults(self.classes, task_type)
+    out_dir = fs.join(self.output_dir, self.config.name, str(global_step))
+    qualitative = None
+    if self.write_qualitative and self.config.num_qualitative_results > 0:
+      qualitative = QualitativeResults(
+          out_dir, self.config.num_qualitative_results,
+          self.config.num_qualitative_results_in_tensor_board,
+          self.summary_writer, device=self.device)
     # Subdivide so that every triangle fits the voxelizer's sampling window.
     irm = vc.voxelization_image_resolution_multiplier
     max_edge_view = (VOXELIZE_WINDOW_PIXELS - 4) / irm / max(resolution)
@@ -115,11 +117,12 @@ class EvalPipeline:
         max_edge_view=max_edge_view,
         worker_processes=None if dl_cfg.worker_processes else False)
     self._run_batches(loader, self._cached_gt_fn, task_type, resolution,
-                      quantitative)
+                      quantitative, qualitative)
 
+    if qualitative is not None:
+      qualitative.write_summaries(global_step)
     quantitative.compute_metrics()
     if self.write_results:
-      out_dir = fs.join(self.output_dir, self.config.name, str(global_step))
       quantitative.write_csv(fs.join(out_dir, "voxel_metrics.csv"))
       log.info("Eval '%s' mIoU=%.4f", self.config.name,
                quantitative.get_mean_iou())
@@ -129,7 +132,8 @@ class EvalPipeline:
       self.summary_writer.flush()
     return quantitative.get_mean_iou()
 
-  def _run_batches(self, loader, gt_fn, task_type, resolution, quantitative):
+  def _run_batches(self, loader, gt_fn, task_type, resolution, quantitative,
+                   qualitative=None):
     for hb, valid in loader:
       inputs = {k: torch.from_numpy(v).to(self.device)
                 for k, v in hb.step_inputs(task_type).items()}
@@ -138,3 +142,22 @@ class EvalPipeline:
                               inputs["grid_offset"], resolution)
       pmf = torch.as_tensor(pmf, device=self.device)
       quantitative.add_batch(pmf, grid, hb.mesh_labels[:, 0], valid)
+      if qualitative is not None and qualitative.want_more():
+        self._add_qualitative(qualitative, hb, valid, pmf, grid, resolution)
+
+  @staticmethod
+  def _add_qualitative(qualitative, hb, valid, pmf, grid, resolution):
+    m = float(max(resolution))
+    for i in range(len(valid)):
+      if not valid[i] or not qualitative.want_more():
+        continue
+      # Voxel centres: grid → view is inv(scale(m) with the offset − 0.5).
+      w2x = np.eye(4, dtype=np.float32)
+      w2x[:3, :3] *= m
+      w2x[:3, 3] = hb.grid_offset[i] - 0.5
+      meshes = [hb.triangles[i][hb.tri_valid[i] & (hb.tri_mesh_slot[i] == j)]
+                for j in range(int(hb.mesh_valid[i].sum()))]
+      qualitative.add_scene(
+          hb.scene_ids[i], hb.image[i], pmf[i].cpu().numpy(),
+          grid[i].cpu().numpy(), meshes, list(hb.mesh_labels[i]),
+          np.linalg.inv(w2x))

@@ -12,14 +12,16 @@ the batch dimension of one decode instead of a loop of m³ decodes.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from corenet_tpu_torch.models.corenet import CoreNet
 from corenet_tpu_torch.models.resnet50 import ResNet50Features
 from corenet_tpu_torch.train.step import compute_v2s
+from corenet_tpu_torch.utils.device import checked_device
 
 # (image, camera, v2x, offsets[m³, B, 3]) → pmf float32[m³, B, d, h, w, C]
 MultiOffsetInferenceFn = Callable[
@@ -99,39 +101,86 @@ def _tile_batch(features: ResNet50Features, k: int) -> ResNet50Features:
   return ResNet50Features(*(tile(f) for f in features))
 
 
-def super_resolution_from_model(model: CoreNet, state_dict,
-                                resolution: Tuple[int, int, int],
-                                batch_offsets: Optional[bool] = None,
-                                device="cuda") -> SuperResolutionInference:
-  """Loads `state_dict` into `model`, moves it to `device` in eval mode and
-  returns its SuperResolutionInference.
+class _MultiOffset(nn.Module):
+  """One eval-mode evaluation of a CoreNet over m³ offsets: the image is
+  encoded once, the decoder runs once per offset or, with batch_offsets,
+  once over all of them folded into the batch."""
+
+  def __init__(self, model: CoreNet, batch_offsets: bool):
+    super().__init__()
+    self.model = model
+    self.batch_offsets = batch_offsets
+
+  def forward(self, image, camera, v2x, grid_offsets):
+    v2s = compute_v2s(camera, v2x)
+    features = self.model.encode(image)
+    if self.batch_offsets:
+      k, b = grid_offsets.shape[:2]
+      logits = self.model.decode(_tile_batch(features, k),
+                                 v2s.repeat(k, 1, 1),
+                                 grid_offsets.reshape(k * b, 3))
+      pmf = torch.softmax(logits, dim=-1)
+      return pmf.reshape((k, b) + pmf.shape[1:])
+    return torch.stack([
+        torch.softmax(self.model.decode(features, v2s, offset), dim=-1)
+        for offset in grid_offsets])
+
+
+def super_resolution_inference_factory(
+    model: CoreNet, resolution: Tuple[int, int, int],
+    batch_offsets: Optional[bool] = None, device="cuda"
+) -> Callable[[Mapping[str, torch.Tensor]], SuperResolutionInference]:
+  """Returns make(weights) → SuperResolutionInference, where `weights` is
+  a CoreNet state dict (the keys of `model.state_dict()`, such as
+  models/convert.py's `state_dict_from_jax` gives).
+
+  `model` supplies the architecture only. Every product evaluates one
+  eval-mode twin of it (built on the meta device, fine logits) through
+  `torch.func.functional_call` over the given tensors, moved to `device`:
+  tensors already there are used without a copy, so a training loop can
+  pass its own model's state dict. Neither the factory nor `make` changes
+  the caller's model: not its mode, its weights or its device.
 
   batch_offsets (None = on when max(native) ≤ 32, the JAX package's rule)
   decodes all m³ offsets as one batch instead of a loop of m³ decodes:
   the small per-pass convolutions batch up, and memory grows with m³·B.
   Convolution numerics may depend on the batch shape, so the two ways
-  agree within float32 rounding, not bit for bit.
+  agree within float32 rounding, not bit for bit. Packed execution is
+  not ported yet: the fine decoder runs.
   """
-  device = torch.device(device)
-  if device.type == "cuda" and not torch.cuda.is_available():
-    raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-  model.load_state_dict(state_dict)
-  model.to(device).eval()
+  device = checked_device(device)
   if batch_offsets is None:
     batch_offsets = max(resolution) <= 32
+  twin = _MultiOffset(CoreNet(model.config, device="meta"),
+                      batch_offsets).eval()
+  # Buffers outside the state dict (constants the modules derive from the
+  # configuration) come from the caller's model.
+  persistent = set(model.state_dict())
+  constants = {"model." + name: buf.to(device)
+               for name, buf in model.named_buffers()
+               if name not in persistent}
 
-  @torch.inference_mode()
-  def multi(image, camera, v2x, grid_offsets):
-    v2s = compute_v2s(camera, v2x)
-    features = model.encode(image)
-    if batch_offsets:
-      k, b = grid_offsets.shape[:2]
-      logits = model.decode(_tile_batch(features, k), v2s.repeat(k, 1, 1),
-                            grid_offsets.reshape(k * b, 3))
-      pmf = torch.softmax(logits, dim=-1)
-      return pmf.reshape((k, b) + pmf.shape[1:])
-    return torch.stack([
-        torch.softmax(model.decode(features, v2s, offset), dim=-1)
-        for offset in grid_offsets])
+  def make(weights: Mapping[str, torch.Tensor]) -> SuperResolutionInference:
+    tensors = dict(constants)
+    tensors.update(("model." + k, v.to(device)) for k, v in weights.items())
 
-  return SuperResolutionInference(multi, resolution, device)
+    @torch.inference_mode()
+    def multi(image, camera, v2x, grid_offsets):
+      return torch.func.functional_call(
+          twin, tensors, (image, camera, v2x, grid_offsets), strict=True)
+
+    return SuperResolutionInference(multi, resolution, device)
+
+  return make
+
+
+def super_resolution_from_model(model: CoreNet,
+                                weights: Mapping[str, torch.Tensor],
+                                resolution: Tuple[int, int, int],
+                                batch_offsets: Optional[bool] = None,
+                                device="cuda") -> SuperResolutionInference:
+  """One-shot convenience wrapper over the factory: `model`'s architecture
+  with `weights` (a CoreNet state dict), on `device`, in eval mode. The
+  caller's model is left as it is."""
+  return super_resolution_inference_factory(
+      model, resolution, batch_offsets=batch_offsets, device=device)(weights)

@@ -16,6 +16,7 @@ from typing import Iterable
 import torch
 
 from corenet_tpu_torch.models.corenet import CoreNet
+from corenet_tpu_torch.utils.device import checked_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +41,7 @@ def create_train_state(model: CoreNet, learning_rate: float = 4e-4,
                        device="cuda") -> TrainState:
   """Moves `model` (its weights already loaded or initialized) to `device`
   in train mode and gives it a fresh Adam optimizer."""
-  device = torch.device(device)
-  if device.type == "cuda" and not torch.cuda.is_available():
-    raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+  device = checked_device(device)
   model.to(device).train()
   optimizer = create_optimizer(model.parameters(), learning_rate,
                                adam_epsilon)

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from corenet_tpu_torch.utils import misc
+from corenet_tpu_torch.utils.device import checked_device
 
 # Plane (u, v) coordinate axes for each dominant axis k (x=0, y=1, z=2):
 # k=0 → (y, z); k=1 → (z, x); k=2 → (x, y), the GLSL swizzles yzxw, zxyw
@@ -273,9 +274,7 @@ def voxelize_mesh(triangles,
     float32[num_meshes, D, H, W], or the (2D+1, 2H+1, 2W+1) irregular grid
     with sub_grid_sampling.
   """
-  device = torch.device(device)
-  if device.type == "cuda" and not torch.cuda.is_available():
-    raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+  device = checked_device(device)
   mesh_num_tri = np.asarray(mesh_num_tri, np.int64)
   num_meshes = int(mesh_num_tri.shape[0])
   tri_mesh_index = torch.from_numpy(misc.dynamic_tile_np(mesh_num_tri)).to(

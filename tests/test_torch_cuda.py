@@ -486,3 +486,68 @@ def test_confusion_matrix_and_labels_on_card_equal_cpu(device, res):
   acc.add_batch(pmf.to(device), grid.to(device), fg,
                 valid=np.array([True, False]))
   assert acc.confusion.sum() == res ** 3
+
+
+def _soup(seed, n):
+  """n seeded triangles inside [0, 1]³ with seeded colors."""
+  rng = np.random.default_rng(seed)
+  centres = rng.uniform(0.2, 0.8, (n, 1, 3))
+  tris = (centres + rng.normal(0, 0.12, (n, 3, 3))).astype(np.float32)
+  return tris, rng.uniform(0, 1, (n, 3)).astype(np.float32)
+
+
+def _l1(a, b):
+  return float(np.abs(a.astype(np.int32) - b.astype(np.int32)).mean())
+
+
+@pytest.mark.parametrize("size", [(64, 64), (256, 256)])
+def test_renderers_on_card_match_cpu(device, size):
+  """The mesh rasterizer (several chunks) and the voxel raycaster: the
+  card's image within L1 < 1.0 of the CPU's (the measure of
+  tests/test_viz.py); only pixel-edge ties may round apart."""
+  from corenet_tpu_torch.viz import camera, renderer
+  tris, colors = _soup(0, 700)
+  cam = camera.default_camera([0, 0, 0], [1, 1, 1])
+  images = [renderer.render_mesh(tris, colors, cam, size, chunk=256,
+                                 device=dev) for dev in ("cpu", device)]
+  assert _l1(*images) < 1.0 and (images[1] != 255).any()
+  rng = np.random.default_rng(1)
+  grid = ((rng.random((24, 20, 28)) > 0.8) *
+          rng.integers(1, 5, (24, 20, 28))).astype(np.int32)
+  images = [renderer.render_voxel_grid(grid, image_size=size, device=dev)
+            for dev in ("cpu", device)]
+  assert _l1(*images) < 1.0 and (images[1] != 255).any()
+
+
+def test_checkpoint_round_trip_on_card(device, tmp_path, monkeypatch):
+  """A model and Adam state on the card through the port's `.cpt`: the
+  restored model's logits equal the original's, and so do the moments."""
+  from corenet_tpu_torch.train.checkpoint import CheckpointManager
+  monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+  model = CoreNet(CoreNetConfig(DecoderConfig((32, 32, 32), 2)))
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  state = create_train_state(model, global_step=4, device=device)
+  for p in state.model.parameters():
+    p.grad = torch.full_like(p, 1e-3)
+  state.optimizer.step()
+  path = CheckpointManager(str(tmp_path)).save_state(state, {"k": 1})
+  fresh = create_train_state(
+      CoreNet(CoreNetConfig(DecoderConfig((32, 32, 32), 2))), device=device)
+  restored, meta, _ = CheckpointManager(str(tmp_path)).read_last_checkpoint(
+      fresh)
+  assert meta == {"k": 1} and restored.global_step == 4
+  assert restored.model.encoder.stage1_bn.mean.device.type == "cuda"
+  for p, q in zip(state.model.parameters(), restored.model.parameters()):
+    a, b = state.optimizer.state[p], restored.optimizer.state[q]
+    assert torch.equal(a["exp_avg"], b["exp_avg"]) and int(b["step"]) == 1
+    assert b["exp_avg_sq"].device.type == "cuda"
+  image = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                        device=device)
+  v2s = torch.diag(torch.tensor([1.8 / 32] * 3 + [1.0])).repeat(2, 1, 1)
+  v2s[:, :3, 3] = -0.9
+  offsets = torch.full((2, 3), 0.5, device=device)
+  with torch.inference_mode():
+    logits = [m.eval()(image, v2s.to(device), offsets)
+              for m in (state.model, restored.model)]
+  assert torch.equal(*logits)
+  assert path.endswith("state_000000004.cpt")

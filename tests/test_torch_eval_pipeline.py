@@ -13,6 +13,8 @@ confusion entries may differ by at most 0.1 % of the voxels and the mean
 IoU by at most 1e-3.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from corenet_tpu_torch.models.convert import state_dict_from_jax
 from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
 from corenet_tpu_torch.train.step import make_eval_forward
+from corenet_tpu_torch.utils.png import decode_png
 from helpers import make_fixture_dataset
 from test_torch_model import _jax_model, _variables
 
@@ -172,15 +175,19 @@ def test_eval_pipeline_matches_jax_with_the_bridged_model(
 
 def test_eval_pipeline_options(fixture_ds, tmp_path, monkeypatch):
   """max_scenes, the summary writer, no CSV without write_results;
-  qualitative results raise, as does the default device without a card."""
+  qualitative results write their tiles; the default device without a card
+  raises."""
   infer = _fixed_inference(2)
 
   class Writer:
     def __init__(self):
-      self.scalars, self.flushed = {}, False
+      self.scalars, self.images, self.flushed = {}, {}, False
 
     def add_scalar(self, name, value, step):
       self.scalars[name] = (value, step)
+
+    def add_image(self, name, image, step):
+      self.images[name] = (image.shape, step)
 
     def flush(self):
       self.flushed = True
@@ -195,13 +202,24 @@ def test_eval_pipeline_options(fixture_ds, tmp_path, monkeypatch):
   assert recorder.results.confusion.sum() == 3 * 32 ** 3
   assert writer.flushed and writer.scalars["General/mIoU"] == (mean_iou, 7)
   assert "IoU/__void__" in writer.scalars
-  assert not (tmp_path / "fixture_eval").exists()
+  assert not (tmp_path / "fixture_eval").exists() and not writer.images
 
+  # A config that asks for qualitative results (as every shipped one
+  # does) gets its tiles beside the CSV, the first in the summaries; at
+  # 64² per view here (the pipeline draws 256²), to keep the CPU's
+  # rasterizer quick.
+  monkeypatch.setattr(pipeline, "QualitativeResults", functools.partial(
+      pipeline.QualitativeResults, image_size=(64, 64)))
+  writer = Writer()
   asks = pipeline.EvalPipeline(
-      _eval_config(config, fixture_ds, "FG_BG", qualitative=4),
-      str(tmp_path), infer, device="cpu")
-  with pytest.raises(NotImplementedError, match="slice 8"):
-    asks.run_eval(0)
+      _eval_config(config, fixture_ds, "FG_BG", qualitative=1),
+      str(tmp_path), infer, summary_writer=writer, device="cpu")
+  asks.run_eval(0, max_scenes=2)
+  out = tmp_path / "fixture_eval" / "0"
+  tiles = sorted(p.name for p in out.glob("img_*.png"))
+  assert len(tiles) == 1 and (out / "voxel_metrics.csv").exists()
+  assert decode_png((out / tiles[0]).read_bytes()).shape == (320, 320, 3)
+  assert writer.images == {"rec_0": ((320, 320, 3), 0)}
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   with pytest.raises(RuntimeError, match="no CUDA device"):
     pipeline.EvalPipeline(_eval_config(config, fixture_ds, "FG_BG"),

@@ -44,6 +44,13 @@ def test_confusion_matrix_matches_jax_and_rejects_foreign_labels():
                                5).numpy(), want)
   with pytest.raises(ValueError, match="outside"):
     metrics.confusion_matrix(torch.from_numpy(pred), torch.from_numpy(gt), 4)
+  # A prediction outside the classes beside a small GT label (gt·C + pred
+  # would land in another cell), and negative labels, raise too.
+  for bad_pred, bad_gt in (([0, 5], [0, 0]), ([0, -1], [0, 1]),
+                           ([0, 1], [-1, 1])):
+    with pytest.raises(ValueError, match="outside"):
+      metrics.confusion_matrix(torch.tensor(bad_pred), torch.tensor(bad_gt),
+                               5)
 
 
 def test_tfpn_and_metrics_match_jax_with_nan_for_absent_classes():
