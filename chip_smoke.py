@@ -119,9 +119,33 @@ Phases; the run fails at the first that fails:
               renderers on the card against the CPU (the subdivided cube
               shell, a 128³ GT grid: L1 < 1.0, the share of differing
               pixels); the demo CLI on one scene (a (1280, 1280, 3) PNG).
+  10. train-bf16 training with the models in bf16 (compute_dtype, the JAX
+              pipeline's default; float32 parameters, statistics and
+              gradients) through make_train_step: h7 on GT voxelized in
+              the step with the phase loss (phase 6's batch), h7 on host
+              GT (phase 5's), y1 on the general GT (phase 8's). Each: the
+              first step's launches (K1 4 + 4 in bf16, K2 1, and K3 and K4
+              1 each on the blocked branch), finite float32 gradients,
+              the kernel step against the plain step (loss 1e-6 relative,
+              the gradients by compare_with_plain_step's bf16 rule), a
+              falling loss, 20 timed steps, peak memory, a profile with
+              the share of cuDNN's dgrad and wgrad engines. One h7 row in float32 with TF32 on
+              (for that row only). tests/test_learning.py's two-scene
+              overfit at 32³ in bf16: the loss below a tenth of the first
+              within 400 steps, foreground IoU > 0.8 per scene.
+  11. train-cli `corenet_tpu_torch.cli.train.main` on phase 7's seeded
+              dataset with configs/models/h7.json5's train configuration
+              in bf16, a fresh encoder and short intervals: 3 steps, then
+              a second call that resumes from the newest `.cpt` for one
+              more. Checks the checkpoints' names and steps, the loss
+              summaries, the recurrent eval (its CSV and scalars, the
+              model back in train mode), and the launches of every step
+              and of the eval's batches; logs the seconds per step and
+              the eval's.
 
-Float32 throughout: TF32 is switched off for convolutions and matmuls, so
-the float32 path computes in float32 on the card as on the CPU.
+The float32 phases compute in float32: TF32 is switched off for
+convolutions and matmuls (phase 10 switches it on for its one TF32 row),
+so the float32 path computes in float32 on the card as on the CPU.
 
 Prints the card's name and power limit as nvidia-smi gives them, one JSON
 line of kernel figures, and as its last line
@@ -202,11 +226,13 @@ def camera_and_v2x(torch, res):
   return camera, v2x
 
 
-def seeded_model(torch, CoreNet, config, seed, phase_output=False):
+def seeded_model(torch, CoreNet, config, seed, phase_output=False,
+                 compute_dtype=None):
   """A CPU CoreNet with the port's seeded init and random BatchRenorm
   running statistics (mean ~ N(0, 0.3), var ~ U(0.5, 2)), and a CPU copy
   of its state_dict."""
-  model = CoreNet(config, phase_output=phase_output)
+  model = CoreNet(config, phase_output=phase_output,
+                  compute_dtype=compute_dtype)
   model.reset_parameters(torch.Generator().manual_seed(seed))
   gen = torch.Generator().manual_seed(seed + 1)
   with torch.no_grad():
@@ -275,7 +301,25 @@ def device_profile(torch, forward):
   top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
   return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
           "device_events": len(spans),
-          "top": [(n, t / 1e3) for n, t in top]}
+          "top": [(n, t / 1e3) for n, t in top],
+          "conv_shares": conv_shares(by_name)}
+
+
+def conv_shares(by_name):
+  """The shares of the kernels' summed device time that cuDNN's dgrad and
+  wgrad engines (names with `dgrad` / `wgrad`) and the other convolution
+  kernels (`conv`, `fprop`, `implicit`, `xmma`) take."""
+  total = sum(by_name.values()) or 1.0
+  shares = {"dgrad": 0.0, "wgrad": 0.0, "other_conv": 0.0}
+  for name, us in by_name.items():
+    low = name.lower()
+    if "dgrad" in low:
+      shares["dgrad"] += us / total
+    elif "wgrad" in low:
+      shares["wgrad"] += us / total
+    elif any(k in low for k in ("conv", "fprop", "implicit", "xmma")):
+      shares["other_conv"] += us / total
+  return shares
 
 
 def log_profile(label, profile, wall_ms, what="forward"):
@@ -473,11 +517,11 @@ def skip_backward_rows(torch, op, v2s, sample, res, gen):
               torch, lambda: op.skip_gather_backward_reference(
                   dout, px, py, h2, h2)),
           # One PyTorch call of the same function: index_add_ into a zeroed
-          # f32 buffer (float32 only; bf16 would accumulate in bf16).
+          # buffer of dout's dtype (in bf16 it also accumulates in bf16).
           "library_ms": device_ms(
               torch, lambda: torch.zeros(
-                  (b * h2 * h2, c), device=dev).index_add_(0, flat, dout2d))
-          if dtype == torch.float32 else None,
+                  (b * h2 * h2, c), device=dev, dtype=dtype).index_add_(
+                      0, flat, dout2d)),
           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
       }
       rows.append(row)
@@ -614,12 +658,19 @@ def feeds_batch_renorm(name):
       or re.fullmatch(r"decoder\.stage_\d_c\.bias", name) is not None)
 
 
-def compare_with_plain_step(torch, modules, state, step, batch, label):
+def compare_with_plain_step(torch, modules, state, step, batch, label,
+                            bf16=False):
   """One step with the kernels and the same step, from the same state,
-  with the plain versions: loss within 1e-6 relative and every gradient
-  that carries mass within 1e-4 relative L2. cuDNN is held to
+  with the plain versions: loss within 1e-6 relative. cuDNN is held to
   deterministic algorithms, so the forward is the same bit for bit and
-  only the order of summation differs. The state is restored after."""
+  only the order of summation differs. In float32 every gradient that
+  carries mass lies within 1e-4 relative L2. In bf16 (`bf16`) the loss's
+  sums (the kernel's float64 partials, the plain version's float32) part
+  in the last float32 bits, and the backward's bf16 roundings turn that
+  into ulp flips that BatchRenorm's backward carries on: all gradients
+  together lie within BF16_GRADS_TOL relative L2, and each points the
+  same way (cosine ≥ BF16_COSINE). The state is restored after. Returns
+  (loss's relative difference, worst gradient's, all gradients')."""
   model, optimizer = state.model, state.optimizer
   snap_model = {k: v.clone() for k, v in model.state_dict().items()}
   snap_opt = copy.deepcopy(optimizer.state_dict())
@@ -650,21 +701,38 @@ def compare_with_plain_step(torch, modules, state, step, batch, label):
     raise AssertionError(f"kernel step loss {loss_k} and plain step loss "
                          f"{loss_p} differ by {loss_rel} relative")
   worst, worst_name, checked = 0.0, None, 0
+  cosine, cosine_name = 1.0, None
+  diff_sq = norm_sq = 0.0
   for name, gp in grads_p.items():
     if feeds_batch_renorm(name):
       continue
-    rel = float((grads_k[name] - gp).norm() / gp.norm())
+    gk = grads_k[name]
+    rel = float((gk - gp).norm() / gp.norm())
+    cos = float((gk * gp).sum() / (gk.norm() * gp.norm()))
+    diff_sq += float((gk - gp).norm()) ** 2
+    norm_sq += float(gp.norm()) ** 2
     checked += 1
     if not math.isfinite(rel) or rel > worst:
       worst, worst_name = rel, name
-  if not worst <= 1e-4:
+    if not math.isfinite(cos) or cos < cosine:
+      cosine, cosine_name = cos, name
+  together = math.sqrt(diff_sq / norm_sq)
+  if bf16:
+    if not (together <= BF16_GRADS_TOL and cosine >= BF16_COSINE):
+      raise AssertionError(
+          f"{label}: the kernel step's gradients differ from the plain "
+          f"step's by {together} relative L2 together (tolerance "
+          f"{BF16_GRADS_TOL}), lowest cosine {cosine} ({cosine_name}; at "
+          f"least {BF16_COSINE})")
+  elif not worst <= 1e-4:
     raise AssertionError(f"gradient {worst_name} of the kernel step differs "
                          f"from the plain step's by {worst} relative L2")
   log(f"{label}: the step with the kernels matches the step with the plain "
       f"versions: loss {loss_k:.7f} vs {loss_p:.7f} ({loss_rel:.2e} "
-      f"relative), worst of {checked} gradients {worst:.2e} relative L2 "
-      f"({worst_name})")
-  return loss_rel, worst
+      f"relative), all {checked} gradients together {together:.2e} "
+      f"relative L2, worst {worst:.2e} ({worst_name}), lowest cosine "
+      f"{cosine:.6f} ({cosine_name})")
+  return loss_rel, worst, together
 
 
 def loss_steps(state, step, batch, first_loss, label):
@@ -732,27 +800,8 @@ def train_h7(torch, op, fgbg, CoreNet, config, image, camera, v2x, offsets,
   compare_with_plain_step(torch, (op, fgbg), state, step, batch, "h7 train")
 
   state = loss_steps(state, step, batch, first_loss, "h7 train")
-
-  torch.cuda.reset_peak_memory_stats()
-  times = []
-  for _ in range(TRAIN_RUNS):
-    start = time.perf_counter()
-    state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - start) * 1e3)
-  mem = torch.cuda.max_memory_allocated()
-  ms = statistics.median(times)
-  holder = [state]
-
-  def one_step():
-    holder[0], _ = step(holder[0], batch)
-
-  log_profile("h7 train", device_profile(torch, one_step), ms, what="step")
-  log(f"h7 train: over {TRAIN_RUNS} steps median {ms:.3f} ms (min "
-      f"{min(times):.3f}, max {max(times):.3f}) per batch of {BATCH} = "
-      f"{BATCH * 1e3 / ms:.2f} training scenes/s; first step {first_s:.3f} "
-      f"s; peak memory {mem / 2**30:.2f} GiB")
-  return launches, ms
+  _, timed = timed_training(torch, "h7 train", step, state, batch)
+  return launches, timed["median_ms"]
 
 
 def train_card_against_cpu(torch, CoreNet, CoreNetConfig, DecoderConfig,
@@ -1062,31 +1111,13 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
     gt_wall.append((time.perf_counter() - start) * 1e3)
   del words
 
-  torch.cuda.reset_peak_memory_stats()
-  times = []
-  for _ in range(TRAIN_RUNS):
-    start = time.perf_counter()
-    state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - start) * 1e3)
-  mem = torch.cuda.max_memory_allocated()
-  ms = statistics.median(times)
-  holder = [state]
-
-  def one_step():
-    holder[0], _ = step(holder[0], batch)
-
-  log_profile("h7 train-gt", device_profile(torch, one_step), ms,
-              what="step")
+  _, timed = timed_training(torch, "h7 train-gt", step, state, batch)
+  ms = timed["median_ms"]
   gt_ms = statistics.median(gt_wall)
   log(f"h7 train-gt: GT (voxelize + OR + phased_gt) {gt_ms:.3f} ms on the "
       f"host clock (median of 5), {split['sum_ms']:.3f} ms of device time "
       f"= {split['sum_ms'] / ms:.4f} of the step; phase loss vs plain loss "
       f"{phase_loss_rel:.2e} relative")
-  log(f"h7 train-gt: over {TRAIN_RUNS} steps median {ms:.3f} ms (min "
-      f"{min(times):.3f}, max {max(times):.3f}) per batch of {BATCH} = "
-      f"{BATCH * 1e3 / ms:.2f} training scenes/s; first step {first_s:.3f} "
-      f"s; peak memory {mem / 2**30:.2f} GiB")
   split.update(gt_wall_ms=gt_ms, step_ms=ms)
   return launches, k3, k4, split
 
@@ -1654,31 +1685,14 @@ def train_y1(torch, mods, CoreNet, config, image, camera, dev):
                      + split["centres_compose_ms"])
   del shell, filled
 
-  torch.cuda.reset_peak_memory_stats()
-  times = []
-  for _ in range(TRAIN_RUNS):
-    start = time.perf_counter()
-    state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - start) * 1e3)
-  mem = torch.cuda.max_memory_allocated()
-  ms = statistics.median(times)
-  holder = [state]
-
-  def one_step():
-    holder[0], _ = step(holder[0], batch)
-
-  log_profile("y1 train", device_profile(torch, one_step), ms, what="step")
+  _, timed = timed_training(torch, "y1 train", step, state, batch)
+  ms = timed["median_ms"]
   log(f"y1 train: GT device time by part (CUDA events around 3 eager calls, "
       f"launch gaps included; sub-grid {list(2 * r + 1 for r in res)} × "
       f"{b * slots} meshes): " + ", ".join(
           f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
           for k, v in split.items()) +
       f"; {split['sum_ms'] / ms:.4f} of the step")
-  log(f"y1 train: over {TRAIN_RUNS} steps median {ms:.3f} ms (min "
-      f"{min(times):.3f}, max {max(times):.3f}) per batch of {BATCH} = "
-      f"{BATCH * 1e3 / ms:.2f} training scenes/s; first step {first_s:.3f} "
-      f"s; peak memory {mem / 2**30:.2f} GiB")
   split["step_ms"] = ms
   return launches, split
 
@@ -1990,6 +2004,393 @@ def serve_cli(torch, mods, CoreNet, config, image, camera, v2x, dev):
   return launches, out
 
 
+# Phase 10's bf16 kernel step against its plain step
+# (compare_with_plain_step): all gradients together within this relative
+# L2, each one's cosine at least this. An H100's run measured 2.2e-2 for
+# the encoder's gradients together and 0.995 for the lowest cosine (a
+# BatchRenorm bias, whose gradient is a sum with cancellation).
+BF16_GRADS_TOL = 5e-2
+BF16_COSINE = 0.95
+OVERFIT_RES = (32, 32, 32)
+OVERFIT_STEPS = 400
+
+
+def timed_training(torch, label, step, state, batch, what="step"):
+  """TRAIN_RUNS steps one by one on the host clock (each ended by a
+  synchronize), the peak memory, and one profiled step. Returns the
+  state and the figures."""
+  torch.cuda.reset_peak_memory_stats()
+  times = []
+  for _ in range(TRAIN_RUNS):
+    start = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+  mem = torch.cuda.max_memory_allocated()
+  ms = statistics.median(times)
+  holder = [state]
+
+  def one_step():
+    holder[0], _ = step(holder[0], batch)
+
+  profile = device_profile(torch, one_step)
+  log_profile(label, profile, ms, what=what)
+  shares = profile["conv_shares"] if profile else None
+  out = {"median_ms": ms, "min_ms": min(times), "max_ms": max(times),
+         "peak_gib": mem / 2 ** 30,
+         "busy_ms": profile["busy_ms"] if profile else None,
+         "idle_share": 1 - profile["busy_ms"] / ms if profile else None,
+         "conv_shares": shares}
+  log(f"{label}: over {TRAIN_RUNS} steps median {ms:.3f} ms (min "
+      f"{min(times):.3f}, max {max(times):.3f}) per batch of "
+      f"{batch['image'].shape[0]} = "
+      f"{batch['image'].shape[0] * 1e3 / ms:.2f} training scenes/s; peak "
+      f"memory {mem / 2**30:.2f} GiB; share of the kernels' device time: "
+      + (", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+         if shares else "not measured"))
+  return holder[0], out
+
+
+def bf16_training(torch, mods, label, state, step, batch, expected):
+  """One bf16 training path: the first step's launches (counted from 0)
+  against `expected`, finite loss and gradients, the kernel step against
+  the plain step, a falling loss, the timed steps and a profile."""
+  torch.cuda.synchronize()
+  zero_counts(*mods)
+  start = time.perf_counter()
+  state, metrics = step(state, batch)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - start
+  launches = launch_counts(*mods)
+  if launches != expected:
+    raise AssertionError(f"{label} step launched (skip_gather, its backward, "
+                         f"fgbg_sums, block_scatter_or, phased_gt) "
+                         f"{launches} times, expected {expected}")
+  first_loss = float(metrics["loss"])
+  bad = [n for n, p in state.model.named_parameters()
+         if p.grad is None or p.grad.dtype != torch.float32
+         or not bool(torch.isfinite(p.grad).all())]
+  if not math.isfinite(first_loss) or bad:
+    raise AssertionError(f"{label}: loss {first_loss}, non-finite, missing "
+                         f"or non-float32 gradients {bad[:5]}")
+  log(f"{label}: first step {first_s:.3f} s, loss {first_loss:.6f}, "
+      f"launches {launches}, loss and all gradients finite (float32)")
+  loss_rel, grad_worst, grad_rel = compare_with_plain_step(
+      torch, mods, state, step, batch, label, bf16=True)
+  state = loss_steps(state, step, batch, first_loss, label)
+  state, out = timed_training(torch, label, step, state, batch)
+  out.update(launches=launches, first_s=first_s, first_loss=first_loss,
+             plain_loss_rel=loss_rel, plain_grads_rel=grad_rel,
+             plain_worst_grad_rel=grad_worst)
+  return state, out
+
+
+def overfit_bf16(torch, CoreNet, CoreNetConfig, DecoderConfig, dev):
+  """tests/test_learning.py's two-scene overfit at 32³ in bf16 with the
+  phase loss: two cubes subdivided for irm 8 and a 24-pixel window, 64²
+  images, Adam lr 1e-3; the loss must fall below a tenth of the first
+  (checked every 50 steps, at most OVERFIT_STEPS), then each scene's
+  foreground IoU with batch statistics (a fine-logit twin in train mode,
+  no update kept) above 0.8 against the GT."""
+  import numpy as np
+  from corenet_tpu_torch.data.batching import subdivide_triangles
+  from corenet_tpu_torch.train import gt
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import compute_v2s, make_train_step
+  res = OVERFIT_RES
+  max_edge = (24 - 4) / 8 / res[0]
+
+  def cube(lo, hi):
+    c = cube_shell()
+    return lo + (c - 0.3) / 0.4 * (hi - lo)
+
+  subs = [subdivide_triangles(cube(0.28, 0.62).astype(np.float32), max_edge),
+          subdivide_triangles(cube(0.42, 0.78).astype(np.float32), max_edge)]
+  t = max(len(s) for s in subs)
+  tris = np.zeros((2, t, 3, 3), np.float32)
+  valid = np.zeros((2, t), bool)
+  for i, s in enumerate(subs):
+    tris[i, :len(s)] = s
+    valid[i, :len(s)] = True
+  rng = np.random.RandomState(3)
+  batch = {"image": torch.from_numpy((rng.rand(2, 64, 64, 3) * 255).astype(
+               np.uint8)),
+           "camera": torch.eye(4).expand(2, 4, 4).contiguous(),
+           "triangles": torch.from_numpy(tris),
+           "tri_mesh_slot": torch.zeros((2, t), dtype=torch.int32),
+           "tri_valid": torch.from_numpy(valid),
+           "mesh_labels": torch.ones((2, 1), dtype=torch.int32),
+           "grid_offset": torch.full((2, 3), 0.5)}
+  batch = {k: v.to(dev) for k, v in batch.items()}
+  config = CoreNetConfig(DecoderConfig(res, 2))
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 90,
+                          phase_output=True, compute_dtype=torch.bfloat16)
+  state = create_train_state(model, learning_rate=1e-3, device=dev)
+  vox = dict(image_resolution_multiplier=8, max_bbox_pixels=24,
+             conservative_rasterization=False)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", res,
+                         voxelization_kwargs=vox)
+  start = time.perf_counter()
+  first = loss = None
+  steps = 0
+  for steps in range(1, OVERFIT_STEPS + 1):
+    state, metrics = step(state, batch)
+    if steps == 1:
+      first = float(metrics["loss"])
+    elif steps % 50 == 0:
+      loss = float(metrics["loss"])
+      if loss < first / 10:
+        break
+  seconds = time.perf_counter() - start
+  if not (math.isfinite(first) and first > 0.5 and loss is not None
+          and loss < first / 10):
+    raise AssertionError(f"bf16 overfit: loss {first} then {loss} after "
+                         f"{steps} steps, not below a tenth")
+  grid, v2x = gt.voxelize_batch(*(batch[k] for k in GT_KEYS), resolution=res,
+                                **vox)
+  twin = CoreNet(config, compute_dtype=torch.bfloat16).to(dev)
+  twin.load_state_dict(state.model.state_dict())
+  with torch.no_grad():
+    logits = twin.train()(batch["image"], compute_v2s(batch["camera"], v2x),
+                          batch["grid_offset"])
+  pred, truth = logits.argmax(-1) == 1, grid == 1
+  ious = [float((pred[i] & truth[i]).sum() / (pred[i] | truth[i]).sum())
+          for i in range(2)]
+  if not min(ious) > 0.8:
+    raise AssertionError(f"bf16 overfit: foreground IoU {ious}")
+  log(f"bf16 overfit at 32³ (two scenes, phase loss): loss {first:.5f} → "
+      f"{loss:.5f} in {steps} steps ({seconds:.1f} s, "
+      f"{seconds / steps * 1e3:.1f} ms per step); foreground IoU per scene "
+      f"{ious[0]:.4f}, {ious[1]:.4f} (> 0.8 asked)")
+  return {"first_loss": first, "loss": loss, "steps": steps,
+          "seconds": seconds, "ious": ious}
+
+
+def train_bf16(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
+               camera, v2x, offsets, dev):
+  """Phase 10: training in bf16 (the JAX pipeline's default compute
+  dtype) through make_train_step: h7 on GT voxelized in the step with the
+  phase loss, h7 on host GT, y1 on the general GT; one h7 row in float32
+  with TF32 on; the two-scene overfit. Returns the figures."""
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  bf16 = torch.bfloat16
+  h7 = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
+  out = {}
+
+  # h7 on GT voxelized in the step, the phase loss: the JAX pipeline's
+  # default for h7, minus packing.
+  host, _ = triangle_batch(torch, image, camera, SEED + 41)
+  tri_batch = {k: v.to(dev) for k, v in host.items()}
+  model, _ = seeded_model(torch, CoreNet, h7, SEED + 40, phase_output=True,
+                          compute_dtype=bf16)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+  _, out["h7_gt"] = bf16_training(torch, mods, "h7 train-bf16 (GT in step)",
+                                  state, step, tri_batch, (4, 4, 1, 1, 1))
+  del model, state, step
+  torch.cuda.empty_cache()
+
+  # h7 on host GT (the batch's grid).
+  model, _ = seeded_model(torch, CoreNet, h7, SEED + 20, compute_dtype=bf16)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES)
+  grid_batch = {"image": image.to(dev), "camera": camera.to(dev),
+                "v2x": v2x.to(dev),
+                "grid": ellipsoid_grid(torch, dev, OUTPUT_RES, BATCH,
+                                       offsets, SEED + 21),
+                "grid_offset": offsets.to(dev)}
+  _, out["h7_host"] = bf16_training(torch, mods, "h7 train-bf16 (host GT)",
+                                    state, step, grid_batch, (4, 4, 1, 0, 0))
+  del model, state, step
+  torch.cuda.empty_cache()
+
+  # y1 on the general GT, as TrainPipeline builds y1's model.
+  host, _ = triangle_batch(torch, image, camera, SEED + 61,
+                           irm=Y1_VOX["image_resolution_multiplier"],
+                           res=Y1_NATIVE[0])
+  y1_batch = {k: v.to(dev) for k, v in host.items()}
+  model, _ = seeded_model(torch, CoreNet, CoreNetConfig(DecoderConfig(
+      Y1_NATIVE, 2)), SEED + 60, phase_output=True, compute_dtype=bf16)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", Y1_NATIVE,
+                         voxelization_kwargs=Y1_VOX)
+  _, out["y1"] = bf16_training(torch, mods, "y1 train-bf16 (general GT)",
+                               state, step, y1_batch, (4, 4, 1, 0, 0))
+  del model, state, step
+  torch.cuda.empty_cache()
+
+  # One h7 row in float32 with TF32 on, for this row only.
+  model, _ = seeded_model(torch, CoreNet, h7, SEED + 40, phase_output=True)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+  torch.backends.cudnn.allow_tf32 = True
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    state, _ = step(state, tri_batch)
+    torch.cuda.synchronize()
+    _, out["h7_gt_tf32"] = timed_training(
+        torch, "h7 train float32 with TF32 (GT in step)", step, state,
+        tri_batch)
+  finally:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+  del model, state, step
+  torch.cuda.empty_cache()
+
+  out["overfit"] = overfit_bf16(torch, CoreNet, CoreNetConfig, DecoderConfig,
+                                dev)
+  torch.cuda.empty_cache()
+  return out
+
+
+def h7_train_config(manifest, meshes_dir, root):
+  """configs/models/h7.json5 (its `//` comment dropped, since json5 is not
+  assumed) with the seeded dataset in place of ShapeNet's, a fresh
+  encoder, and intervals that a run of a few steps crosses: temp
+  checkpoints every 8 examples, persistent ones every 12, the loss every
+  4, one recurrent eval (full_eval on the seeded scenes, no tiles) at
+  step 8."""
+  with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "models", "h7.json5")) as f:
+    text = "\n".join(line for line in f.read().splitlines()
+                     if not line.lstrip().startswith("//"))
+  full = json.loads(text)
+  train = full["train"]
+  eval_dict = h7_eval_config(manifest, meshes_dir, "FG_BG")
+  eval_dict["num_qualitative_results"] = 0
+  train["data"]["datasets"] = [dict(train["data"]["datasets"][0],
+                                    dataset_path=manifest,
+                                    meshes_dir=meshes_dir)]
+  train.update(resnet50_imagenet_checkpoint="", checkpoint_interval=8,
+               persistent_checkpoint_interval=12, tensorboard_log_interval=4,
+               fill_audit_interval=8)
+  full["eval"] = [{"start_step": 8, "interval": 10 ** 6,
+                   "persistent_checkpoint": False, "config": eval_dict}]
+  full["output_path"] = os.path.join(root, "h7")
+  full["string_templates"] = []
+  return full
+
+
+def train_cli(torch, mods, dev):
+  """Phase 11: `corenet_tpu_torch.cli.train.main` on phase 7's seeded
+  dataset with h7's train configuration in bf16: 3 steps (12 examples),
+  then a second call resumes from the newest `.cpt` for one more. Checks
+  the checkpoints' names and steps, the summaries, the eval's CSV, the
+  model in train mode after the eval, and the launches of every step and
+  eval batch. Returns the figures."""
+  from corenet_tpu_torch.cli import train as train_cli_mod
+  from corenet_tpu_torch.train import pipeline as pipeline_mod
+  figures = {"step_s": [], "step_launches": [], "eval_s": []}
+  real_make_step = pipeline_mod.make_train_step
+  real_run_single = pipeline_mod.RecurrentEvals.run_single
+
+  def counted_step(*args, **kwargs):
+    step = real_make_step(*args, **kwargs)
+
+    def wrapped(state, batch):
+      torch.cuda.synchronize()
+      counts = launch_counts(*mods)
+      start = time.perf_counter()
+      result = step(state, batch)
+      torch.cuda.synchronize()
+      figures["step_s"].append(time.perf_counter() - start)
+      figures["step_launches"].append(tuple(
+          a - b for a, b in zip(launch_counts(*mods), counts)))
+      return result
+
+    return wrapped
+
+  def timed_eval(self, pipeline, eval_config, step):
+    counts = launch_counts(*mods)
+    start = time.perf_counter()
+    miou = real_run_single(self, pipeline, eval_config, step)
+    figures["eval_s"].append(time.perf_counter() - start)
+    figures["eval_launches"] = tuple(
+        a - b for a, b in zip(launch_counts(*mods), counts))
+    figures["training_after_eval"] = pipeline.model.training
+    figures["eval_miou"] = miou
+    return miou
+
+  with tempfile.TemporaryDirectory() as root:
+    manifest, meshes_dir = write_eval_dataset(root, SEED + 50)
+    full = h7_train_config(manifest, meshes_dir, root)
+    path = os.path.join(root, "h7_train.json")
+    with open(path, "w") as f:
+      json.dump(full, f)
+    out = full["output_path"]
+    pipeline_mod.make_train_step = counted_step
+    pipeline_mod.RecurrentEvals.run_single = timed_eval
+    try:
+      start = time.perf_counter()
+      first = train_cli_mod.main([f"--config_path={path}", "--max_steps=12",
+                                  "--compute_dtype=bfloat16"])
+      torch.cuda.synchronize()
+      first_s = time.perf_counter() - start
+      start = time.perf_counter()
+      second = train_cli_mod.main([f"--config_path={path}", "--max_steps=16"])
+      torch.cuda.synchronize()
+      second_s = time.perf_counter() - start
+    finally:
+      pipeline_mod.make_train_step = real_make_step
+      pipeline_mod.RecurrentEvals.run_single = real_run_single
+
+    def listing(tier):
+      return sorted(os.listdir(os.path.join(out, "cpt", tier)))
+
+    if (first.state.global_step, second.state.global_step) != (12, 16):
+      raise AssertionError(f"the CLI stopped at {first.state.global_step} "
+                           f"and {second.state.global_step}, not 12 and 16")
+    if (listing("temp") != [f"state_{s:09d}.cpt" for s in (0, 8, 16)]
+        or listing("persistent") != [f"state_{s:09d}.cpt" for s in (12, 16)]):
+      raise AssertionError(f"checkpoints temp {listing('temp')}, persistent "
+                           f"{listing('persistent')}")
+    if not (first.model.compute_dtype == second.model.compute_dtype
+            == torch.bfloat16 and first.model.phase_output):
+      raise AssertionError("the CLI did not train the bf16 phase-loss model")
+
+    def scalars(name):
+      with open(os.path.join(out, "tb", name, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+    losses = [(r["step"], r["value"]) for r in scalars("train")
+              if r["tag"] == "loss"]
+    eval_scalars = scalars("full_eval")
+    if ([s for s, _ in losses] != [4, 8, 12, 16]
+        or not all(math.isfinite(v) for _, v in losses)):
+      raise AssertionError(f"train losses {losses}")
+    if {r["step"] for r in eval_scalars} != {8}:
+      raise AssertionError(f"eval scalars at {eval_scalars}")
+    csv_path = os.path.join(out, "evals", "full_eval", "8",
+                            "voxel_metrics.csv")
+    with open(csv_path) as f:
+      rows = list(csv.reader(f))
+    if [r[0] for r in rows[1:]] != ["iou", "precision", "recall"]:
+      raise AssertionError(f"voxel_metrics.csv rows {rows}")
+    if not figures.get("training_after_eval"):
+      raise AssertionError("the recurrent eval left the model in eval mode")
+    if (len(figures["step_launches"]) != 4
+        or set(figures["step_launches"]) != {(4, 4, 1, 1, 1)}):
+      raise AssertionError(f"launches per step {figures['step_launches']}")
+    batches = -(-EVAL_SCENES // BATCH)
+    if figures["eval_launches"] != (4 * batches, 0, 0, batches, 0):
+      raise AssertionError(f"eval launches {figures['eval_launches']}")
+  figures.update(first_call_s=first_s, second_call_s=second_s,
+                 losses=losses)
+  log(f"train-cli: h7 in bf16 through cli.train.main, 12 examples then a "
+      f"resume from state_000000012.cpt to 16: checkpoints temp (0, 8, 16) "
+      f"and persistent (12, 16); losses {losses}; launches per step "
+      f"{figures['step_launches'][0]} in all 4 steps; seconds per step "
+      + ", ".join(f"{s:.3f}" for s in figures["step_s"]) +
+      f"; the recurrent eval at step 8: mean IoU {figures['eval_miou']:.6f}, "
+      f"{figures['eval_s'][0]:.2f} s, launches {figures['eval_launches']} "
+      f"over {batches} batches, the model back in train mode; calls "
+      f"{first_s:.1f} s and {second_s:.1f} s")
+  return figures
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2099,6 +2500,13 @@ def main() -> int:
                       if row["path"] == path and row["dtype"] == "float32")
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
       for path in ("h7", "y1")}
+  per_forward_bf16 = {
+      key: sum(row[key] for row in shapes
+               if row["path"] == "h7" and row["dtype"] == "bfloat16")
+      for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+  log("skip_gather per h7 forward on the bf16 path (bfloat16, 4 launches): "
+      + ", ".join(f"{key} {value:.4f}"
+                  for key, value in per_forward_bf16.items()))
   for path, sums in per_forward.items():
     log(f"skip_gather per {path} forward (float32, 4 launches): " +
         ", ".join(f"{key} {value:.4f}" for key, value in sums.items()))
@@ -2199,6 +2607,15 @@ def main() -> int:
   cli_launches, cli_times = serve_cli(
       torch, mods, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)),
       image, camera, v2x, dev)
+  torch.cuda.empty_cache()
+
+  # 10. Training in bf16 (the JAX pipeline's default compute dtype).
+  bf16 = train_bf16(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
+                    image, camera, v2x, offsets, dev)
+  torch.cuda.empty_cache()
+
+  # 11. The train CLI: h7 in bf16 with a recurrent eval, then a resume.
+  train_cli_figures = train_cli(torch, mods, dev)
 
   # Launches per path, each counted from zero just before the path ran:
   # one serving forward, one training step, one eval run of 3 batches, one
@@ -2209,7 +2626,16 @@ def main() -> int:
             f"h7 eval, {-(-EVAL_SCENES // BATCH)} batches": eval_launches[i],
             "y1 train, 1 step": y1_launches[i],
             f"h7 eval CLI, {-(-EVAL_SCENES // BATCH)} batches":
-                cli_launches[i]}
+                cli_launches[i],
+            "h7 train-bf16 (GT in step), 1 step":
+                bf16["h7_gt"]["launches"][i],
+            "h7 train-bf16 (host GT), 1 step":
+                bf16["h7_host"]["launches"][i],
+            "y1 train-bf16, 1 step": bf16["y1"]["launches"][i],
+            "h7 train CLI, 1 step":
+                train_cli_figures["step_launches"][0][i],
+            f"h7 train CLI eval, {-(-EVAL_SCENES // BATCH)} batches":
+                train_cli_figures["eval_launches"][i]}
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -2230,6 +2656,8 @@ def main() -> int:
       "timing": "device time per call, CUDA events around CUDA-graph "
                 "replays of 20 calls, median of 7",
       "per_forward_float32": per_forward,
+      # The bf16 path (phase 10): the h7 forward's four skips in bf16.
+      "per_forward_bfloat16_h7": per_forward_bf16,
       "shapes": shapes,
   }
   bwd_f32 = [row for row in bwd_rows if row["dtype"] == "float32"]
@@ -2249,9 +2677,20 @@ def main() -> int:
                      "atomics_first_version")},
       "bound_by": "bytes",
       "library_call": "torch.zeros(...).index_add_(0, flat_index, dout)",
+      # The bf16 path (phase 10): the four skips in bf16, the kernel in the
+      # step's layout; the library call accumulates in bf16 there.
+      "per_step_bfloat16": {
+          key: sum(row[key] for row in bwd_rows
+                   if row["dtype"] == "bfloat16")
+          for key in ("ms", "plain_ms", "bound_ms", "library_ms", "zero_ms",
+                      "ms_contiguous")},
       "timing": entry["timing"],
       "shapes": bwd_rows,
   }
+  log("skip_gather backward per h7 step on the bf16 path (bfloat16, step's "
+      "layout, 4 launches): " + ", ".join(
+          f"{key} {value:.4f}"
+          for key, value in bwd_entry["per_step_bfloat16"].items()))
   int32_row = loss_rows[0]
   fgbg_entry = {
       "name": "fgbg_sums",
@@ -2288,6 +2727,9 @@ def main() -> int:
   gt_entries[0]["serve_cli"] = cli_times
   entry["y1_general_gt_split"] = y1_split
   entry["parity_gt_128"] = parity
+  entry["train_bf16"] = bf16
+  entry["train_cli"] = {k: v for k, v in train_cli_figures.items()
+                        if k != "losses"}
   log(f"h7 scenes/s {BATCH * 1e3 / h7_ms:.3f}; y1 scenes/s "
       f"{BATCH * 1e3 / y1_ms:.3f} (median of {SERVE_RUNS} forwards); h7 "
       f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
@@ -2295,7 +2737,12 @@ def main() -> int:
       f"y1 training scenes/s {BATCH * 1e3 / y1_split['step_ms']:.3f} on the "
       f"general GT (medians of {TRAIN_RUNS} steps); h7 eval scenes/s "
       f"{BATCH * 1e3 / eval_times['median_batch_ms']:.3f} (median of "
-      f"{len(eval_times['batch_ms'])} batches)")
+      f"{len(eval_times['batch_ms'])} batches); in bf16 h7 training "
+      f"scenes/s {BATCH * 1e3 / bf16['h7_gt']['median_ms']:.3f} on GT "
+      f"voxelized in the step, {BATCH * 1e3 / bf16['h7_host']['median_ms']:.3f}"
+      f" on host GT, y1 {BATCH * 1e3 / bf16['y1']['median_ms']:.3f}; h7 "
+      f"float32 with TF32 "
+      f"{BATCH * 1e3 / bf16['h7_gt_tf32']['median_ms']:.3f}")
   log(smi)
   log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries}))
   log(json.dumps({"ok": True, "device": {

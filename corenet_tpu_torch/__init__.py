@@ -20,7 +20,8 @@ counterpart is the file of the same path there:
              batch or voxelized in the step, with the phase loss), the
              on-device ground truth, the voxel → screen matrix, the eval
              forward; `.cpt` checkpoints (the JAX package's container and
-             a msgpack codec of their own)
+             a msgpack codec of their own); the training pipeline with its
+             checkpoint, summary and recurrent-eval cadences
   eval/      super-resolution inference and its factory; the eval pipeline
              with its metrics and results (confusion matrix, IoU, the
              CSV) and qualitative results (rendered tiles)
@@ -28,7 +29,8 @@ counterpart is the file of the same path there:
   viz/       cameras, isosurfaces, artifacts and tiles on the host; the
              mesh rasterizer and voxel raycaster as tensor code on the
              device
-  cli/       the eval and demo entry points (python -m ...)
+  cli/       the train, eval and demo entry points (python -m ...) and
+             the encoder .npz reader
   utils/     rounding and tiling helpers, local + gs:// file I/O, flags,
              summaries (JSONL, TensorBoard when it imports), PNG bytes,
              the device check
@@ -38,8 +40,9 @@ or on ground truth voxelized in the step (the blocked rasterizer with the
 phase loss for FG_BG, the general rasterizer for every other
 configuration, ray parity); the eval pipeline from a dataset manifest to
 `voxel_metrics.csv` and the qualitative tiles; serving from a `.cpt` file
-through the eval and demo CLIs. f32, fine (unpacked) execution, one
-process. Public functions keep the JAX package's channel-last layouts.
+through the eval and demo CLIs; training through `TrainPipeline` and the
+train CLI. float32 or bf16 compute (`compute_dtype`), fine (unpacked)
+execution, one process. Public functions keep the JAX package's channel-last layouts.
 Nothing here imports JAX, corenet_tpu, pandas, msgpack or tensorboard
 at import time; json5, PIL (image decoding) and tensorboard are
 optional.

@@ -134,8 +134,10 @@ def super_resolution_inference_factory(
   a CoreNet state dict (the keys of `model.state_dict()`, such as
   models/convert.py's `state_dict_from_jax` gives).
 
-  `model` supplies the architecture only. Every product evaluates one
-  eval-mode twin of it (built on the meta device, fine logits) through
+  `model` supplies the architecture and the compute dtype only (a bf16
+  training model is evaluated in bf16, as the JAX package's recurrent
+  evals are). Every product evaluates one eval-mode twin of it (built on
+  the meta device, fine float32 logits) through
   `torch.func.functional_call` over the given tensors, moved to `device`:
   tensors already there are used without a copy, so a training loop can
   pass its own model's state dict. Neither the factory nor `make` changes
@@ -151,7 +153,8 @@ def super_resolution_inference_factory(
   device = checked_device(device)
   if batch_offsets is None:
     batch_offsets = max(resolution) <= 32
-  twin = _MultiOffset(CoreNet(model.config, device="meta"),
+  twin = _MultiOffset(CoreNet(
+      model.config, compute_dtype=model.compute_dtype, device="meta"),
                       batch_offsets).eval()
   # Buffers outside the state dict (constants the modules derive from the
   # configuration) come from the caller's model.

@@ -20,8 +20,15 @@ where sg stops the gradient, σ = √(var + eps) and σ_B = √(var_B + eps)
 with the biased batch variance. It then updates the running statistics
 with momentum 0.01, "unbiasing" the variance by channels/(channels − 1)
 (the reference model's quirk, kept for its training dynamics), and counts
-the step. Statistics are taken over this process's batch. Float32 only:
-the bf16 one-pass variance comes with the bf16 port.
+the step. Statistics are taken over this process's batch.
+
+Activations may be float32 or bfloat16. The statistics are float32 either
+way; the elementwise passes run in the input's dtype, with the
+per-channel vectors cast to it. For bfloat16 inputs train mode takes the
+JAX package's shifted one-pass statistics, E[(x − c)²] − E[x − c]² with
+c the running mean (no gradient), clamped at 0: the shift keeps the
+subtraction free of cancellation when the variance is far below the
+squared mean. Float32 keeps the two-pass form.
 """
 
 from __future__ import annotations
@@ -74,20 +81,24 @@ class BatchRenorm(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     shape = (1, -1) + (1,) * (x.dim() - 2)
+
+    def tile(v):  # a per-channel vector, broadcast in x's dtype
+      return v.to(x.dtype).view(shape)
+
     if self.training:
       scale_eff, shift_eff = self._train_statistics(x)
-      y = x * scale_eff.view(shape) + shift_eff.view(shape)
+      y = x * tile(scale_eff) + tile(shift_eff)
     else:
       inv = 1.0 / torch.sqrt(self.var + self.eps)
-      y = x * inv.view(shape) + (-self.mean * inv).view(shape)
-    return y * self.scale.view(shape) + self.bias.view(shape)
+      y = x * tile(inv) + tile(-self.mean * inv)
+    return y * tile(self.scale) + tile(self.bias)
 
   def _train_statistics(self, x: torch.Tensor):
-    """(r/σ_B, d − μ_B·r/σ_B) per channel, then the running-statistics
-    update."""
-    if x.dtype != torch.float32:
+    """(r/σ_B, d − μ_B·r/σ_B) per channel in float32, then the
+    running-statistics update."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
       raise NotImplementedError(
-          f"BatchRenorm train mode is ported for float32 only, got {x.dtype}")
+          f"BatchRenorm train mode takes float32 or bfloat16, got {x.dtype}")
     nt = self.steps.float()
     s = float(_RAMP_START)
     d_max = torch.clamp(5.0 * (nt - s) / 20000.0, 0.0, 5.0)
@@ -95,8 +106,16 @@ class BatchRenorm(nn.Module):
 
     shape = (1, -1) + (1,) * (x.dim() - 2)
     dims = (0,) + tuple(range(2, x.dim()))
-    b_mean = x.mean(dim=dims)
-    b_var = torch.square(x - b_mean.view(shape)).mean(dim=dims)
+    if x.dtype == torch.bfloat16:
+      shift = self.mean  # no gradient: a buffer
+      xf = x.float() - shift.view(shape)
+      m_shift = xf.mean(dim=dims)
+      b_mean = m_shift + shift
+      b_var = torch.clamp(
+          torch.square(xf).mean(dim=dims) - torch.square(m_shift), min=0.0)
+    else:
+      b_mean = x.mean(dim=dims)
+      b_var = torch.square(x - b_mean.view(shape)).mean(dim=dims)
     b_std = torch.sqrt(b_var + self.eps)
 
     running_std = torch.sqrt(self.var + self.eps)

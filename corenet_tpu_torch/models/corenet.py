@@ -2,8 +2,8 @@
 
 Counterpart of corenet_tpu/models/corenet.py. Inputs are channel-last:
 uint8 image [B, H, W, 3], voxel → screen matrix [B, 4, 4], grid sampling
-offsets [B, 3]. Output: float32 logits [B, D, H, W, C]. Float32 only: the
-JAX package's bf16 `compute_dtype` and packed decoder are not ported yet.
+offsets [B, 3]. Output: float32 logits [B, D, H, W, C]. The JAX package's
+packed decoder is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,15 +52,28 @@ class CoreNet(nn.Module):
   [B, D/2, H/2, W/2, 8·C] (models/decoder.py), for the phase-loss
   training step. A model with and one without it load the same
   state_dict.
+
+  compute_dtype: None = float32 everywhere; torch.bfloat16 = convolutions
+  and matmuls in bf16 with float32 parameters, statistics, parameter
+  gradients and fine logits (phase-major logits stay bf16). Like
+  phase_output it changes execution, not the state_dict.
   """
 
   def __init__(self, config: CoreNetConfig, phase_output: bool = False,
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+      raise ValueError(f"compute_dtype must be None, torch.float32 or "
+                       f"torch.bfloat16, got {compute_dtype}")
+    if compute_dtype == torch.float32:
+      compute_dtype = None
     self.config = config
     self.phase_output = phase_output
+    self.compute_dtype = compute_dtype
     dc = config.decoder
-    self.encoder = ResNet50FeatureExtractor(device=device)
+    self.encoder = ResNet50FeatureExtractor(compute_dtype=compute_dtype,
+                                            device=device)
     self.decoder = ReconstructionDecoder(
         resolution=tuple(dc.resolution),
         num_output_channels=dc.num_output_channels,
@@ -68,6 +81,7 @@ class CoreNet(nn.Module):
         latent_channels=dc.latent_channels,
         skip_fraction=dc.skip_fraction,
         phase_output=phase_output,
+        compute_dtype=compute_dtype,
         device=device)
 
   def reset_parameters(self, generator: torch.Generator) -> None:

@@ -13,6 +13,13 @@ stride last_upscale_factor to the output channels. With `phase_output`
 phase-loss training step pairs with phase-major labels; the parameters
 are the same.
 
+`compute_dtype` (None = float32; torch.bfloat16) runs every convolution,
+the latent linear layer and the skips' compressions in that dtype, as the
+JAX decoder does: the latent returns to float32 before stage 1's
+BatchRenorm, the towers run in the compute dtype, and the fine logits
+return to float32. Phase-major logits stay in the compute dtype (the
+loss takes their difference in float32).
+
 Module names follow the flax scopes (`stage_0`, `stage_1_bn`, `stage_2_c`,
 `rt_skip_5.compress_channels`, …). Activations are (N, C, D, H, W) inside;
 the features come in channel-last and the logits go out as
@@ -54,6 +61,7 @@ class ReconstructionDecoder(nn.Module):
                num_output_channels: int, last_upscale_factor: int = 2,
                latent_channels: int = 64, skip_fraction: float = 0.75,
                phase_output: bool = False,
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     if phase_output and last_upscale_factor != 2:
@@ -73,13 +81,14 @@ class ReconstructionDecoder(nn.Module):
         if round(c * skip_fraction) != 0:
           self.skip_channels[stage] = round(c * skip_fraction)
 
-    self.stage_0 = layers.Linear(2048, latent_channels, device=device)
+    cd = dict(compute_dtype=compute_dtype, device=device)
+    self.stage_0 = layers.Linear(2048, latent_channels, **cd)
     # stage_1: ReLU, BN, ConvT(latent + 3 → 256) emitting the ir³ seed grid
     # (kernel = stride = ir, the JAX package's generalization of the
     # reference's hard-coded 4).
     self.stage_1_bn = BatchRenorm(latent_channels + 3, device=device)
     self.stage_1_t = layers.ConvTranspose(latent_channels + 3, 256, ir,
-                                          ndim=3, stride=ir, device=device)
+                                          ndim=3, stride=ir, **cd)
     channels = 256
     layer_res = ir
     for stage, conv_c, conv_k, t_out, t_k, t_pad, t_op in _TOWERS:
@@ -88,20 +97,19 @@ class ReconstructionDecoder(nn.Module):
       self.add_module(f"stage_{stage}_bn1",
                       BatchRenorm(channels, device=device))
       self.add_module(f"stage_{stage}_c", layers.Conv(
-          channels, conv_c, conv_k, ndim=3, padding=conv_k // 2,
-          device=device))
+          channels, conv_c, conv_k, ndim=3, padding=conv_k // 2, **cd))
       self.add_module(f"stage_{stage}_bn2",
                       BatchRenorm(conv_c, device=device))
       self.add_module(f"stage_{stage}_t", layers.ConvTranspose(
           conv_c, t_out, t_k, ndim=3, stride=stride, padding=t_pad,
           output_padding=t_op, phase_output=phase_output and stage == 6,
-          device=device))
+          **cd))
       channels = t_out
       layer_res = tuple(v * stride for v in layer_res)
       if stage in self.skip_channels:
         src_c = _SKIPS[stage][2]
         self.add_module(f"rt_skip_{stage}", SampleGrid2d(
-            src_c + 3, self.skip_channels[stage], layer_res, device=device))
+            src_c + 3, self.skip_channels[stage], layer_res, **cd))
         channels += self.skip_channels[stage]
         # The skip's voxel → screen matrix is M @ diag(r, 1) with
         # r = resolution / layer resolution, divided in float32 as JAX
@@ -127,6 +135,8 @@ class ReconstructionDecoder(nn.Module):
     src = src2d.permute(0, 3, 1, 2)
     b, _, h, w = src.shape
     o = voxel_sample_locations[:, :, None, None].expand(b, 3, h, w)
+    # bf16 features with the float32 offsets promote to float32, as
+    # jnp.concatenate does; the compression casts back to its dtype.
     src = torch.cat([src, o], dim=1)
     # M @ diag(r, 1) as a column scaling: exact, and independent of the
     # matmul precision settings.
@@ -140,7 +150,7 @@ class ReconstructionDecoder(nn.Module):
               voxel_projection_matrix: torch.Tensor,
               voxel_sample_locations: torch.Tensor) -> torch.Tensor:
     imf = image_features
-    x = self.stage_0(imf.global_average_2048)
+    x = self.stage_0(imf.global_average_2048).float()
     x = torch.cat([x, voxel_sample_locations], dim=-1)
     x = x[:, :, None, None, None]  # [B, latent + 3, 1, 1, 1]
     x = self.stage_1_t(self.stage_1_bn(F.relu(x)))
@@ -151,5 +161,5 @@ class ReconstructionDecoder(nn.Module):
                        voxel_projection_matrix, voxel_sample_locations)
     x = self._tower(x, 6)
     if self.phase_output:
-      return x  # [B, D/2, H/2, W/2, 8·C], phase-major, float32
+      return x  # [B, D/2, H/2, W/2, 8·C], phase-major, compute dtype
     return x.permute(0, 2, 3, 4, 1).float()

@@ -7,6 +7,13 @@ keep PyTorch's weight layouts: a convolution's weight is
 with no flip, a linear layer's (out, in). models/convert.py maps the JAX
 package's kernels (spatial... + (in, out)) onto them.
 
+`compute_dtype` (None = float32; torch.bfloat16) casts each call's input
+and kernel to that dtype, as the JAX modules do; the parameters stay
+float32, so autograd's cast gives float32 parameter gradients. The bias
+goes in as the JAX layers add it: `Conv` adds the float32 bias to its
+bf16 output in float32 and rounds once, `ConvTranspose` and `Linear` add
+it cast to the compute dtype.
+
 `reset_parameters(generator)` reproduces the JAX package's initializers:
 torch's default U(±1/√fan_in) for kernels and biases, kaiming-normal
 (fan_in, relu; truncated at two standard deviations, as flax's
@@ -65,6 +72,7 @@ class Conv(nn.Module):
                kernel_size: IntOrTuple, ndim: int, stride: IntOrTuple = 1,
                padding: IntOrTuple = 0,
                kernel_init_mode: str = "torch_default",
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     if ndim not in (2, 3):
@@ -76,6 +84,7 @@ class Conv(nn.Module):
     self.stride = _tuple(stride, ndim)
     self.padding = _tuple(padding, ndim)
     self.kernel_init_mode = kernel_init_mode
+    self.compute_dtype = compute_dtype
     self.fan_in = in_features * math.prod(k)
     self.weight = nn.Parameter(
         torch.empty((features, in_features) + k, device=device))
@@ -90,7 +99,12 @@ class Conv(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     conv = F.conv2d if self.ndim == 2 else F.conv3d
-    return conv(x, self.weight, self.bias, self.stride, self.padding)
+    if self.compute_dtype is None:
+      return conv(x, self.weight, self.bias, self.stride, self.padding)
+    y = conv(x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
+             None, self.stride, self.padding)
+    bias = self.bias.view((-1,) + (1,) * self.ndim)
+    return (y.float() + bias).to(y.dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -107,6 +121,7 @@ class ConvTranspose(nn.Module):
                kernel_size: IntOrTuple, ndim: int, stride: IntOrTuple = 1,
                padding: IntOrTuple = 0, output_padding: IntOrTuple = 0,
                phase_output: bool = False,
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     if ndim not in (2, 3):
@@ -117,6 +132,7 @@ class ConvTranspose(nn.Module):
     k = _tuple(kernel_size, ndim)
     self.ndim = ndim
     self.phase_output = phase_output
+    self.compute_dtype = compute_dtype
     self.stride = _tuple(stride, ndim)
     self.padding = _tuple(padding, ndim)
     self.output_padding = _tuple(output_padding, ndim)
@@ -133,8 +149,13 @@ class ConvTranspose(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     conv_t = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
-    y = conv_t(x, self.weight, self.bias, self.stride, self.padding,
-               self.output_padding)
+    if self.compute_dtype is None:
+      y = conv_t(x, self.weight, self.bias, self.stride, self.padding,
+                 self.output_padding)
+    else:
+      y = conv_t(x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
+                 None, self.stride, self.padding, self.output_padding)
+      y = y + self.bias.to(y.dtype).view((-1,) + (1,) * self.ndim)
     if not self.phase_output:
       return y
     b, f, d, h, w = y.shape
@@ -147,8 +168,10 @@ class Linear(nn.Module):
   """Dense layer with torch's default init."""
 
   def __init__(self, in_features: int, features: int,
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
+    self.compute_dtype = compute_dtype
     self.weight = nn.Parameter(
         torch.empty((features, in_features), device=device))
     self.bias = nn.Parameter(torch.empty(features, device=device))
@@ -159,7 +182,11 @@ class Linear(nn.Module):
     _uniform_(self.bias, bound, generator)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, self.weight, self.bias)
+    if self.compute_dtype is None:
+      return F.linear(x, self.weight, self.bias)
+    dtype = self.compute_dtype
+    # The product is rounded before the bias is added, as `x @ k + b`.
+    return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
 
 
 def max_pool_2d(x: torch.Tensor, kernel: int, stride: int,

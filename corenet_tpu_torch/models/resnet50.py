@@ -6,6 +6,10 @@ residual outputs of stages 2..5, and the global average of the last
 stage. BatchRenorm uses eps = 1e-3 throughout. Submodule names follow the
 flax scopes (`stage1_conv`, `stage2a.conv_a`, `stage2a.bn_shortcut`, …).
 
+`compute_dtype` (None = float32; torch.bfloat16) goes to every
+convolution: activations and taps then come out in bf16, while the
+parameters and the BatchRenorm statistics stay float32.
+
 Inside, activations are (N, C, H, W). At the public boundary the image is
 channel-last and the features are channel-last views of the (N, C, H, W)
 tensors (no copy), so they compare directly with the JAX package's.
@@ -33,25 +37,27 @@ class ResNet50Features(NamedTuple):
 
 
 def _conv(in_features, features, kernel_size, stride=1, padding=0,
-          device=None):
+          compute_dtype=None, device=None):
   return layers.Conv(in_features, features, kernel_size, ndim=2,
                      stride=stride, padding=padding,
-                     kernel_init_mode="kaiming_normal", device=device)
+                     kernel_init_mode="kaiming_normal",
+                     compute_dtype=compute_dtype, device=device)
 
 
 class IdentityBlock(nn.Module):
 
   def __init__(self, in_features: int, kernel_size: int,
                filters: Tuple[int, int, int],
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     f1, f2, f3 = filters
-    self.conv_a = _conv(in_features, f1, 1, device=device)
+    kw = dict(compute_dtype=compute_dtype, device=device)
+    self.conv_a = _conv(in_features, f1, 1, **kw)
     self.bn_a = BatchRenorm(f1, device=device)
-    self.conv_b = _conv(f1, f2, kernel_size, padding=kernel_size // 2,
-                        device=device)
+    self.conv_b = _conv(f1, f2, kernel_size, padding=kernel_size // 2, **kw)
     self.bn_b = BatchRenorm(f2, device=device)
-    self.conv_c = _conv(f2, f3, 1, device=device)
+    self.conv_c = _conv(f2, f3, 1, **kw)
     self.bn_c = BatchRenorm(f3, device=device)
 
   def forward(self, x: torch.Tensor):
@@ -67,18 +73,18 @@ class DownscaleBlock(nn.Module):
 
   def __init__(self, in_features: int, kernel_size: int,
                filters: Tuple[int, int, int], stride: int = 2,
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     f1, f2, f3 = filters
-    self.conv_shortcut = _conv(in_features, f3, 1, stride=stride,
-                               device=device)
+    kw = dict(compute_dtype=compute_dtype, device=device)
+    self.conv_shortcut = _conv(in_features, f3, 1, stride=stride, **kw)
     self.bn_shortcut = BatchRenorm(f3, device=device)
-    self.conv_a = _conv(in_features, f1, 1, stride=stride, device=device)
+    self.conv_a = _conv(in_features, f1, 1, stride=stride, **kw)
     self.bn_a = BatchRenorm(f1, device=device)
-    self.conv_b = _conv(f1, f2, kernel_size, padding=kernel_size // 2,
-                        device=device)
+    self.conv_b = _conv(f1, f2, kernel_size, padding=kernel_size // 2, **kw)
     self.bn_b = BatchRenorm(f2, device=device)
-    self.conv_c = _conv(f2, f3, 1, device=device)
+    self.conv_c = _conv(f2, f3, 1, **kw)
     self.bn_c = BatchRenorm(f3, device=device)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -102,9 +108,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class ResNet50FeatureExtractor(nn.Module):
 
-  def __init__(self, device: Optional[torch.device] = None):
+  def __init__(self, compute_dtype: Optional[torch.dtype] = None,
+               device: Optional[torch.device] = None):
     super().__init__()
-    self.stage1_conv = _conv(3, 64, 7, stride=2, padding=3, device=device)
+    kw = dict(compute_dtype=compute_dtype, device=device)
+    self.stage1_conv = _conv(3, 64, 7, stride=2, padding=3, **kw)
     self.stage1_bn = BatchRenorm(64, device=device)
     in_features = 64
     for stage, blocks, filters, stride in _STAGES:
@@ -112,9 +120,9 @@ class ResNet50FeatureExtractor(nn.Module):
         name = f"stage{stage}{block}"
         if block == "a":
           module = DownscaleBlock(in_features, 3, filters, stride=stride,
-                                  device=device)
+                                  **kw)
         else:
-          module = IdentityBlock(in_features, 3, filters, device=device)
+          module = IdentityBlock(in_features, 3, filters, **kw)
         self.add_module(name, module)
         in_features = filters[2]
 
@@ -131,7 +139,8 @@ class ResNet50FeatureExtractor(nn.Module):
           x = module(x)
         else:
           x, taps[stage] = module(x)
-    avg_pool = x.mean(dim=(2, 3))
+    # As jnp.mean: summed in float32, rounded once to the input's dtype.
+    avg_pool = x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype)
     return ResNet50Features(_nhwc(stage1), _nhwc(taps[2]), _nhwc(taps[3]),
                             _nhwc(taps[4]), _nhwc(taps[5]), avg_pool)
 

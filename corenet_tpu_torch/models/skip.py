@@ -108,15 +108,18 @@ def sample_grid2d(grid2d: torch.Tensor,
 
 class SampleGrid2d(nn.Module):
   """1×1 channel compression + projected gather (ray-traced skip), in the
-  port's inner layout: grid2d [B, C, H, W] → [B, out, D, H, W]."""
+  port's inner layout: grid2d [B, C, H, W] → [B, out, D, H, W], in the
+  compression's compute dtype (the gather copies rows of that dtype)."""
 
   def __init__(self, in_channels: int, out_channels: int,
                grid_resolution: Tuple[int, int, int],
+               compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     self.grid_resolution = tuple(grid_resolution)
     self.compress_channels = layers.Conv(in_channels, out_channels, 1,
-                                         ndim=2, device=device)
+                                         ndim=2, compute_dtype=compute_dtype,
+                                         device=device)
 
   def forward(self, grid2d: torch.Tensor,
               voxel_projection_matrix: torch.Tensor,

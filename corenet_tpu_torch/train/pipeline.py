@@ -1,15 +1,65 @@
-"""Training pipeline helpers.
+"""Training pipeline: state creation or resume, the step loop, and the
+checkpoint, summary, fill-audit and recurrent-eval cadences.
 
-Counterpart of corenet_tpu/train/pipeline.py. For now it holds the model
-configuration's derivation from a training configuration, which the eval
-and demo CLIs need to rebuild a model from a checkpoint's metadata;
-`TrainPipeline` itself is not ported yet.
+Counterpart of corenet_tpu/train/pipeline.py for one process on one
+device. `TrainPipeline` creates the state (a seeded CoreNet, optionally
+the imported ResNet-50 encoder, a fresh Adam) and saves it, or resumes
+from the newest `.cpt` under `<output_path>/cpt/`; each epoch's dataset
+is re-derived from the global step, so a resumed run continues the JAX
+package's data order (and, where the batch size does not divide the
+dataset, goes on to the next epoch where the JAX package stops:
+`_epoch_loader`); `run` steps until `max_steps`, writing temp and
+persistent checkpoints, the loss to `<output_path>/tb/train/` and the
+fill audit on their StepEvent schedules. `RecurrentEvals` runs the
+configuration's evals at their schedules through one cached
+`EvalPipeline` each, on an eval-mode twin over the training model's own
+tensors, in the training dtype.
+
+Not ported here, each refused with the slice that brings it: host ground
+truth (`gt_mode="host"`, slice 8b), packed decoder execution (slice 6),
+meshes and more than one process (slice 7). `decoder_execution="auto"`
+runs the fine decoder.
 """
 
 from __future__ import annotations
 
+import logging
+from typing import Any, Dict, List, Optional
+
+import torch
+
 from corenet_tpu_torch.config import config as cfg
-from corenet_tpu_torch.models.corenet import CoreNetConfig, DecoderConfig
+from corenet_tpu_torch.config.config import config_to_dict
+from corenet_tpu_torch.data.batching import VOXELIZE_WINDOW_PIXELS
+from corenet_tpu_torch.data.loader import DataLoader, distributed_indices
+from corenet_tpu_torch.data.manager import DatasetManager
+from corenet_tpu_torch.eval.pipeline import EvalPipeline
+from corenet_tpu_torch.eval.super_resolution import (
+    super_resolution_inference_factory)
+from corenet_tpu_torch.models import batch_renorm
+from corenet_tpu_torch.models.corenet import (
+    CoreNet, CoreNetConfig, DecoderConfig)
+from corenet_tpu_torch.train import checkpoint as cpt_lib
+from corenet_tpu_torch.train import gt as gt_lib
+from corenet_tpu_torch.train import state as state_lib
+from corenet_tpu_torch.train.step import make_train_step
+from corenet_tpu_torch.utils import fs, misc
+from corenet_tpu_torch.utils.device import checked_device
+from corenet_tpu_torch.utils.summary import SummaryWriter
+from corenet_tpu_torch.voxel.fill import static_rounds_converged
+
+log = logging.getLogger(__name__)
+
+# Static interior-fill rounds that the JAX package uses under more than
+# one process, where an adaptive fixpoint would desync the hosts. Real
+# meshes converge in 2-3 rounds. One process takes the adaptive fill
+# unless the configuration asks for a static count.
+FILL_ROUNDS_STATIC = 6
+
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
+AUTO_DECODER_NOTE = ("decoder_execution='auto': packed (space-to-depth) "
+                     "execution is slice 6 of the port; running the fine "
+                     "decoder")
 
 
 def model_config_from_train_config(config: cfg.TrainConfig,
@@ -28,3 +78,383 @@ def model_config_from_train_config(config: cfg.TrainConfig,
       last_upscale_factor=config.last_upscale_factor,
       latent_channels=config.latent_channels,
       skip_fraction=config.skip_fraction))
+
+
+class TrainPipeline:
+
+  def __init__(self, config: cfg.TrainConfig, output_path: str,
+               mesh=None, extra_metadata: Optional[Dict[str, Any]] = None,
+               gt_mode: str = "device", gt_algorithm: str = "raster",
+               compute_dtype: str = "bfloat16",
+               decoder_execution: str = "auto",
+               phase_loss: Optional[bool] = None,
+               renorm_ramp_start: Optional[int] = None, device="cuda"):
+    """Arguments as the JAX package's TrainPipeline:
+
+    gt_mode: 'device' voxelizes the ground truth in the step ('host', the
+      native C++ ops in the loader, is slice 8b).
+    gt_algorithm: 'raster' (rasterize + fill) or 'parity'.
+    compute_dtype: 'bfloat16' (the default; float32 parameters,
+      statistics, logits and gradients) or 'float32'.
+    decoder_execution: 'auto' or 'fine' run the fine decoder; 'packed' is
+      slice 6.
+    phase_loss: the loss on phase-major logits; None = on for FG_BG with
+      last_upscale_factor 2.
+    renorm_ramp_start: the step at which BatchRenorm's r/d clips open
+      (None keeps 5000).
+    device: where the model trains; 'cuda' needs a card.
+    """
+    if mesh is not None:
+      raise NotImplementedError("a device mesh (more than one device or "
+                                "process) is slice 7 of the port")
+    if gt_mode not in ("device", "host"):
+      raise ValueError(f"unknown gt_mode {gt_mode!r}")
+    if gt_mode == "host":
+      raise NotImplementedError("gt_mode='host' (the native C++ ground "
+                                "truth in the loader) is slice 8b of the "
+                                "port")
+    if gt_algorithm not in ("raster", "parity"):
+      raise ValueError(f"unknown gt_algorithm {gt_algorithm!r}")
+    if compute_dtype not in COMPUTE_DTYPES:
+      raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    if decoder_execution not in ("auto", "fine", "packed"):
+      raise ValueError(f"unknown decoder_execution {decoder_execution!r}")
+    if decoder_execution == "packed":
+      raise NotImplementedError("decoder_execution='packed' (space-to-depth "
+                                "execution) is slice 6 of the port")
+    if decoder_execution == "auto":
+      log.info(AUTO_DECODER_NOTE)
+    self.device = checked_device(device)
+    self.config = config
+    self.output_path = output_path
+    self.extra_metadata = extra_metadata or {}
+    self.gt_mode = gt_mode
+    self.gt_algorithm = gt_algorithm
+    if renorm_ramp_start is not None:
+      batch_renorm.set_ramp_start(renorm_ramp_start)
+      log.info("BatchRenorm r/d ramps engage at step %d", renorm_ramp_start)
+
+    vc = config.data.voxelization_config
+    self.task_type = vc.task_type.value
+    self.resolution = vc.resolution.as_tuple()
+    self.dataset_manager = DatasetManager(config.data)
+    self.classes = self.dataset_manager.classes
+    self.model_config = model_config_from_train_config(
+        config, len(self.classes))
+    phase_ok = (self.task_type == "FG_BG"
+                and self.model_config.decoder.last_upscale_factor == 2)
+    if phase_loss is None:
+      phase_loss = phase_ok
+    elif phase_loss and not phase_ok:
+      raise ValueError("phase_loss requires FG_BG and last_upscale_factor=2")
+    self.model = CoreNet(self.model_config, phase_output=phase_loss,
+                         compute_dtype=COMPUTE_DTYPES[compute_dtype])
+
+    irm = vc.voxelization_image_resolution_multiplier
+    # A static fill count only when the configuration asks for one (one
+    # process: the adaptive fixpoint is exact); the audit then checks it.
+    self.fill_rounds = vc.voxelization_fill_rounds or None
+    if self.fill_rounds is not None and gt_algorithm == "raster":
+      log.info("raster GT uses a static %d-round interior fill (config "
+               "voxelization_fill_rounds); the fill audit runs every %d "
+               "steps and once at the first step", self.fill_rounds,
+               config.fill_audit_interval)
+    self.voxelization_kwargs = dict(
+        sub_grid_sampling=vc.sub_grid_sampling,
+        image_resolution_multiplier=irm,
+        conservative_rasterization=vc.conservative_rasterization,
+        projection_depth_multiplier=(
+            vc.voxelization_projection_depth_multiplier),
+        max_bbox_pixels=VOXELIZE_WINDOW_PIXELS,
+        fill_rounds=self.fill_rounds,
+        num_label_values=len(self.classes))
+    # Subdivision target: a triangle's bbox is bounded by its longest edge,
+    # and the rasterizer's window must cover bbox·irm plus ~4 px of margin.
+    self.max_edge_view = (VOXELIZE_WINDOW_PIXELS - 4) / irm / max(
+        self.resolution)
+    self._last_batch = None
+    self._fill_audit_count = 0
+    self.cpt_manager = cpt_lib.CheckpointManager(fs.join(output_path, "cpt"))
+    self.tb_writer = SummaryWriter(fs.join(output_path, "tb", "train"))
+    self.state: Optional[state_lib.TrainState] = None
+    self.train_step = None
+
+  # ------------------------------------------------------------ state ----
+  def create_or_load_state(self) -> state_lib.TrainState:
+    """The newest checkpoint's state; without one, a fresh state (weights
+    from seed 0, the imported encoder if configured, step 0), saved
+    first."""
+    if self.state is None:
+      self.model.reset_parameters(torch.Generator().manual_seed(0))
+      self._load_encoder_weights()
+      self.state = state_lib.create_train_state(
+          self.model, self.config.initial_learning_rate,
+          self.config.adam_epsilon, device=self.device)
+      self.train_step = make_train_step(
+          self.model, self.state.optimizer, self.task_type, self.resolution,
+          voxelization_kwargs=dict(self.voxelization_kwargs,
+                                   algorithm=self.gt_algorithm))
+    if not self.cpt_manager.list_checkpoints():
+      log.info("No checkpoint found; creating initial state")
+      self.cpt_manager.save_state(self.state, self._extra_metadata())
+      return self.state
+    state, _, path = self.cpt_manager.read_last_checkpoint(self.state)
+    self.state = state
+    log.info("Loaded checkpoint %s (step %d)", path, state.global_step)
+    return self.state
+
+  def _extra_metadata(self) -> Dict[str, Any]:
+    meta = dict(self.extra_metadata)
+    meta.setdefault("train_config", config_to_dict(self.config))
+    meta.setdefault("classes", list(self.classes))
+    return meta
+
+  def _load_encoder_weights(self) -> None:
+    """The imported ResNet-50 ImageNet weights into the encoder: an `.npz`
+    of cli/import_resnet50_checkpoint.py's layout; an empty path keeps the
+    fresh encoder."""
+    path = self.config.resnet50_imagenet_checkpoint
+    if not path:
+      return
+    from corenet_tpu_torch.cli.import_resnet50_checkpoint import (
+        load_encoder_variables)
+    self.model.load_state_dict(
+        load_encoder_variables(self.model.state_dict(), path))
+
+  # ------------------------------------------------------------- loop ----
+  def _epoch_loader(self, start_step: int) -> DataLoader:
+    """The batches from global step `start_step` to the end of its epoch.
+
+    An epoch is the examples that full batches cover: the dataset's
+    length rounded down to a multiple of the batch size. Where the batch
+    size divides the length, (epoch, offset) = divmod(start_step, length)
+    as in the JAX package; otherwise the JAX package derives the epoch
+    from the whole length, and the step that ends the first epoch finds
+    fewer examples than a batch left (it raises "Empty training
+    dataset"). Here the next epoch starts there instead."""
+    dl_cfg = self.config.data.data_loader
+    covered = (self.dataset_manager.epoch_len // dl_cfg.batch_size
+               * dl_cfg.batch_size)
+    if covered == 0:
+      raise RuntimeError(f"the training dataset holds "
+                         f"{self.dataset_manager.epoch_len} examples, fewer "
+                         f"than a batch of {dl_cfg.batch_size}")
+    epoch, offset = divmod(start_step, covered)
+    dataset = self.dataset_manager.create_dataset(local_seed=epoch)[offset:]
+    # The training shard of one process: every example, wrap-padded.
+    shard = dataset.select(distributed_indices(
+        len(dataset), 1, 0, pad_data=True, shuffle=False))
+    return DataLoader(
+        shard, batch_size=dl_cfg.batch_size,
+        num_workers=dl_cfg.num_data_workers,
+        prefetch_factor=dl_cfg.prefetch_factor,
+        max_edge_view=self.max_edge_view,
+        random_grid_offset=self.config.random_grid_offset,
+        seed=start_step, drop_last=True,
+        worker_processes=None if dl_cfg.worker_processes else False)
+
+  def train_steps(self):
+    """Infinite generator of (global_step, metrics). Each epoch's dataset
+    is re-created from the current global step, so a resumed run continues
+    where the saved one was."""
+    if self.state is None:
+      raise RuntimeError("call create_or_load_state() first")
+    while True:
+      loader = self._epoch_loader(self.state.global_step)
+      got_batch = False
+      for hb, _ in loader:
+        got_batch = True
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in hb.step_inputs(self.task_type).items()}
+        self._last_batch = batch
+        self.state, metrics = self.train_step(self.state, batch)
+        yield self.state.global_step, metrics
+      if not got_batch:
+        raise RuntimeError("Empty training dataset")
+
+  def audit_static_fill(self) -> Optional[bool]:
+    """Whether the static interior fill reaches the exact fixpoint on one
+    scene of the last batch (rotating through its scenes from audit to
+    audit): the scene is voxelized without fill, and one round beyond the
+    static count must change nothing. False is logged as an error (that
+    scene's ground truth is under-filled). None when there is nothing to
+    audit: adaptive fill, the parity GT, or no batch yet."""
+    if self.fill_rounds is None or self.gt_algorithm != "raster":
+      return None
+    batch = self._last_batch
+    if batch is None:
+      return None
+    i = self._fill_audit_count % int(batch["grid_offset"].shape[0])
+    self._fill_audit_count += 1
+    kwargs = dict(self.voxelization_kwargs, fill_inside=False,
+                  resolution=self.resolution)
+    del kwargs["fill_rounds"]
+    grid, _ = gt_lib.voxelize_batch(
+        *(batch[k][i:i + 1] for k in ("triangles", "tri_mesh_slot",
+                                      "tri_valid", "mesh_labels",
+                                      "grid_offset")), **kwargs)
+    ok = bool(static_rounds_converged(grid, self.fill_rounds))
+    if not ok:
+      log.error(
+          "GT INTERIOR-FILL UNDER-FILL DETECTED: the static %d-round fill "
+          "did not reach the exact fixpoint on an audited sample; a cavity "
+          "in this dataset winds more than %d turns and its GT is corrupt "
+          "(outside voxels labeled interior). Raise voxelization_fill_rounds "
+          "in the config.", self.fill_rounds, self.fill_rounds)
+    return ok
+
+  def run(self, recurrent_evals: Optional["RecurrentEvals"] = None,
+          max_steps: Optional[int] = None,
+          profile_dir: Optional[str] = None,
+          profile_start: int = 20, profile_steps: int = 10):
+    """The training loop with its cadences. Stops once the global step
+    reaches `max_steps` (default: the config's; negative = never), with a
+    persistent checkpoint.
+
+    profile_dir: when set, `profile_steps` iterations from iteration
+    `profile_start` run under torch.profiler, whose trace is written to
+    `<profile_dir>/trace.json` (Chrome trace format)."""
+    self.create_or_load_state()
+    config = self.config
+    ev_temp = misc.StepEvent(0, config.checkpoint_interval)
+    ev_persistent = misc.StepEvent(0, config.persistent_checkpoint_interval)
+    ev_tb = misc.StepEvent(0, config.tensorboard_log_interval)
+    # The fill audit on its own cadence, and once at the first step.
+    ev_fill = misc.StepEvent(0, config.fill_audit_interval)
+    fill_audited_once = False
+    limit = max_steps if max_steps is not None else config.max_steps
+    profiler = _StepProfiler(profile_dir, profile_start, profile_steps,
+                             self.device)
+
+    prev_step = self.state.global_step
+    try:
+      for step, metrics in self.train_steps():
+        profiler.tick()
+        if ev_tb.trigger(prev_step, step):
+          loss = float(metrics["loss"])
+          self.tb_writer.add_scalar("loss", loss, step)
+          self.tb_writer.flush()
+          log.info("step %d loss %.5f", step, loss)
+
+        if ev_persistent.trigger(prev_step, step):
+          self.cpt_manager.save_state(self.state, self._extra_metadata(),
+                                      persistent=True)
+        elif ev_temp.trigger(prev_step, step):
+          self.cpt_manager.save_state(self.state, self._extra_metadata())
+
+        if (self.fill_rounds is not None
+            and (not fill_audited_once or ev_fill.trigger(prev_step, step))):
+          ok = self.audit_static_fill()
+          fill_audited_once = fill_audited_once or ok is not None
+          if ok is not None:
+            self.tb_writer.add_scalar("gt/fill_audit_ok", float(ok), step)
+
+        if recurrent_evals is not None:
+          recurrent_evals.run(self, prev_step, step)
+
+        prev_step = step
+        if 0 <= limit <= step:
+          self.cpt_manager.save_state(self.state, self._extra_metadata(),
+                                      persistent=True)
+          log.info("Reached max_steps=%d; stopping", limit)
+          return
+    finally:
+      profiler.close()
+      self.tb_writer.flush()
+
+
+class _StepProfiler:
+  """torch.profiler over a window of loop iterations (a no-op without a
+  directory)."""
+
+  def __init__(self, profile_dir, start, steps, device):
+    self.profile_dir = profile_dir
+    self.start, self.steps, self.device = start, steps, device
+    self.iteration = 0
+    self.profile = None
+
+  def _sync(self):
+    if self.device.type == "cuda":
+      torch.cuda.synchronize(self.device)
+
+  def tick(self):
+    if self.profile_dir is None:
+      return
+    if self.iteration == self.start:
+      from torch.profiler import ProfilerActivity, profile
+      activities = [ProfilerActivity.CPU]
+      if self.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+      self._sync()
+      self.profile = profile(activities=activities)
+      self.profile.start()
+      log.info("profiler: tracing %d steps to %s", self.steps,
+               self.profile_dir)
+    elif (self.profile is not None
+          and self.iteration == self.start + self.steps):
+      self.close()
+    self.iteration += 1
+
+  def close(self):
+    if self.profile is None:
+      return
+    self._sync()
+    self.profile.stop()
+    fs.makedirs(self.profile_dir)
+    path = fs.join(self.profile_dir, "trace.json")
+    self.profile.export_chrome_trace(path)
+    self.profile = None
+    log.info("profiler: trace written to %s", path)
+
+
+class RecurrentEvals:
+  """Scheduled evals during training. One EvalPipeline per eval, cached
+  across runs, with its summary writer at `<output_path>/tb/<name>/`; the
+  inference factory is made once and applied to the training model's
+  current tensors at each run."""
+
+  def __init__(self, evals: List[cfg.RecurrentEvalConfig], output_path: str):
+    self.configs = evals
+    self.output_path = output_path
+    self.events = [
+        misc.StepEvent(e.start_step, e.interval) if e.start_step >= 0 else None
+        for e in evals
+    ]
+    self._pipelines = {}
+    self._inference_factory = None
+
+  def run(self, pipeline: TrainPipeline, prev_step: int, next_step: int,
+          force: bool = False):
+    for event, rec in zip(self.events, self.configs):
+      if not force and (event is None or
+                        not event.trigger(prev_step, next_step)):
+        continue
+      if rec.persistent_checkpoint:
+        pipeline.cpt_manager.save_state(
+            pipeline.state, pipeline._extra_metadata(), persistent=True)
+      self.run_single(pipeline, rec.config, next_step)
+
+  def run_single(self, pipeline: TrainPipeline, eval_config: cfg.EvalConfig,
+                 step: int) -> Optional[float]:
+    if self._inference_factory is None:
+      self._inference_factory = super_resolution_inference_factory(
+          pipeline.model, pipeline.model_config.decoder.resolution,
+          device=pipeline.device)
+    # The state dict's tensors are the model's own (no copy): the eval
+    # reads the weights as they are now, and never writes them.
+    inference = self._inference_factory(pipeline.state.model.state_dict())
+
+    if eval_config.name not in self._pipelines:
+      writer = SummaryWriter(fs.join(pipeline.output_path, "tb",
+                                     eval_config.name))
+      self._pipelines[eval_config.name] = EvalPipeline(
+          eval_config, fs.join(pipeline.output_path, "evals"), inference,
+          summary_writer=writer, device=pipeline.device)
+    ep = self._pipelines[eval_config.name]
+    ep.inference_fn = inference
+    miou = ep.run_eval(step)
+    if miou is not None:
+      pipeline.tb_writer.add_scalar(f"eval/{eval_config.name}/mIoU", miou,
+                                    step)
+      pipeline.tb_writer.flush()
+    return miou

@@ -12,6 +12,8 @@ conftest (which sets JAX up):
       tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -551,3 +553,105 @@ def test_checkpoint_round_trip_on_card(device, tmp_path, monkeypatch):
               for m in (state.model, restored.model)]
   assert torch.equal(*logits)
   assert path.endswith("state_000000004.cpt")
+
+
+def _plain_kernels(monkeypatch):
+  """Every kernel of the step swapped for its plain version."""
+  monkeypatch.setattr(op, "skip_gather_forward", op.skip_gather_reference)
+  monkeypatch.setattr(
+      op, "skip_gather_backward",
+      lambda *args, grid_resolution: op.skip_gather_backward_reference(*args))
+  monkeypatch.setattr(fgbg, "fgbg_sums_forward", fgbg.fgbg_sums_reference)
+  monkeypatch.setattr(scatter, "block_scatter_or_forward",
+                      scatter.block_scatter_or_reference)
+  monkeypatch.setattr(phased, "phased_gt_forward", phased.phased_gt_reference)
+
+
+def test_bf16_train_step_on_card_matches_plain_kernels(device, monkeypatch):
+  """The bf16 h7 step (GT voxelized in the step, the phase loss) at 128³,
+  batch 4, 256² images, with the kernels and with their plain versions
+  from the same weights, under deterministic cuDNN: the forward is the
+  same up to the loss's sums (1e-6 relative). Those sums part in the last
+  float32 bits, which the backward's bf16 roundings turn into ulp flips:
+  the gradients together lie within 5e-2 relative L2 and each points the
+  same way (cosine ≥ 0.95), chip_smoke.py's bf16 rule."""
+  monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+  rng = np.random.default_rng(1)
+  batch = _cube_batch(128, batch=4)
+  batch["image"] = torch.from_numpy(
+      rng.integers(0, 256, (4, 256, 256, 3)).astype(np.uint8))
+  batch["camera"] = torch.diag(torch.tensor([1.8, 1.8, 1.8, 1.0])).repeat(
+      4, 1, 1)
+  batch["camera"][:, :3, 3] = -0.9
+  batch = {k: v.to(device) for k, v in batch.items()}
+  kwargs = dict(image_resolution_multiplier=8,
+                conservative_rasterization=False,
+                max_bbox_pixels=VOXELIZE_WINDOW_PIXELS)
+  results = []
+  for plain in (False, True):
+    model = CoreNet(CoreNetConfig(DecoderConfig((128,) * 3, 2)),
+                    phase_output=True, compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = create_train_state(model, device=device)
+    step = make_train_step(state.model, state.optimizer, "FG_BG",
+                           (128,) * 3, voxelization_kwargs=kwargs)
+    counts = op.backward_launch_count
+    with monkeypatch.context() as m:
+      if plain:
+        _plain_kernels(m)
+      _, metrics = step(state, batch)
+    assert (op.backward_launch_count - counts) == (0 if plain else 4)
+    # Conv biases that a BatchRenorm normalizes have a true gradient of 0:
+    # both steps hold rounding dust there.
+    results.append((float(metrics["loss"]), {
+        n: p.grad.clone() for n, p in model.named_parameters()
+        if not (n.endswith(".bias") and (
+            (n.startswith("encoder.") and "conv" in n.split(".")[-2])
+            or re.fullmatch(r"decoder\.stage_\d_c\.bias", n)))}))
+  (loss_k, grads_k), (loss_p, grads_p) = results
+  assert loss_k == pytest.approx(loss_p, rel=1e-6)
+  assert sorted(grads_k) == sorted(grads_p)
+  diff = sum(float((grads_k[n] - g).norm()) ** 2 for n, g in grads_p.items())
+  norm = sum(float(g.norm()) ** 2 for g in grads_p.values())
+  assert (diff / norm) ** 0.5 <= 5e-2
+  for name, g in grads_p.items():
+    k = grads_k[name]
+    assert k.dtype == torch.float32
+    assert float((k * g).sum() / (k.norm() * g.norm())) >= 0.95, name
+
+
+def test_bf16_inference_twin_on_card(device, monkeypatch):
+  """The inference factory over a bf16 training model on the card: the
+  PMF is the bf16 eval forward's (deterministic cuDNN), near the float32
+  twin's, and the caller's model keeps its mode, weights and device."""
+  from corenet_tpu_torch.eval.super_resolution import (
+      super_resolution_from_model)
+  from corenet_tpu_torch.train.step import make_eval_forward
+  monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+  model = CoreNet(CoreNetConfig(DecoderConfig((32, 32, 32), 2)),
+                  compute_dtype=torch.bfloat16)
+  model.reset_parameters(torch.Generator().manual_seed(2))
+  model.to(device).train()
+  weights = {k: v.clone() for k, v in model.state_dict().items()}
+  rng = np.random.default_rng(3)
+  image = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3)).astype(
+      np.uint8)).to(device)
+  camera = torch.diag(torch.tensor([1.8, 1.8, 1.8, 1.0])).repeat(2, 1, 1)
+  camera[:, :3, 3] = -0.9
+  args = (image, camera.to(device),
+          torch.diag(torch.tensor([32.0, 32, 32, 1])).repeat(2, 1, 1).to(
+              device), torch.full((2, 3), 0.5, device=device))
+  pmf = super_resolution_from_model(model, model.state_dict(), (32,) * 3,
+                                    device=device)(*args, (32,) * 3)
+  twin = CoreNet(model.config, compute_dtype=torch.bfloat16).to(device)
+  twin.load_state_dict(weights)
+  assert torch.equal(pmf, make_eval_forward(twin.eval())(*args))
+  f32 = CoreNet(model.config).to(device)
+  f32.load_state_dict(weights)
+  pmf32 = make_eval_forward(f32.eval())(*args)
+  assert not torch.equal(pmf, pmf32)
+  assert float((pmf - pmf32).abs().mean()) < 0.02
+  assert model.training and next(model.parameters()).device.type == "cuda"
+  for k, v in model.state_dict().items():
+    assert torch.equal(v, weights[k]), k

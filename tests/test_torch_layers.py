@@ -123,10 +123,12 @@ def test_batch_renorm_eval_matches_jax(spatial):
 
 
 def test_batch_renorm_refuses_train_mode():
-  # Train mode is ported for float32; bf16 (the JAX package's shifted
-  # one-pass variance) comes with the bf16 port.
-  with pytest.raises(NotImplementedError):
-    BatchRenorm(3).train()(torch.zeros(2, 3, dtype=torch.bfloat16))
+  # Train mode takes the two dtypes the JAX package trains in: float32 and
+  # bfloat16 (its shifted one-pass variance, tests/test_torch_bf16.py).
+  with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+    BatchRenorm(3).train()(torch.zeros(2, 3, dtype=torch.float16))
+  y = BatchRenorm(3).train()(torch.ones(2, 3, dtype=torch.bfloat16))
+  assert y.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("steps", [0, 6000, 45000])

@@ -148,7 +148,9 @@ def test_importing_every_port_module_loads_neither_jax_nor_pandas():
   assert {"corenet_tpu_torch.eval.pipeline", "corenet_tpu_torch.cli.eval",
           "corenet_tpu_torch.cli.demo", "corenet_tpu_torch.viz.renderer",
           "corenet_tpu_torch.train.checkpoint",
-          "corenet_tpu_torch.utils.summary"} <= set(modules)
+          "corenet_tpu_torch.utils.summary",
+          "corenet_tpu_torch.train.pipeline", "corenet_tpu_torch.cli.train",
+          "corenet_tpu_torch.cli.import_resnet50_checkpoint"} <= set(modules)
   assert len(modules) > 45
   code = (
       "import importlib, sys\n"
