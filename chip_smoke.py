@@ -27,7 +27,8 @@ Phases; the run fails at the first that fails:
               [4, 128³] with int32, uint8 and float32 labels, within 1e-6
               relative.
   3. serving  h7: 128³ output, 2 classes, batch 4, 256² images, random
-              weights from a seed, through super_resolution_from_model.
+              weights from a seed, through super_resolution_from_model
+              (its default: the packed decoder, since slice 6).
               Checks the PMF (shape, finite, sums to 1), that each forward
               launched the skip kernel once per skip (4), and that the
               PMF equals that of the same forward with the plain skips.
@@ -135,13 +136,35 @@ Phases; the run fails at the first that fails:
               within 400 steps, foreground IoU > 0.8 per scene.
   11. train-cli `corenet_tpu_torch.cli.train.main` on phase 7's seeded
               dataset with configs/models/h7.json5's train configuration
-              in bf16, a fresh encoder and short intervals: 3 steps, then
+              in bf16 (the packed decoder, decoder_execution "auto"; the
+              recurrent eval fine), a fresh encoder and short intervals: 3
+              steps, then
               a second call that resumes from the newest `.cpt` for one
               more. Checks the checkpoints' names and steps, the loss
               summaries, the recurrent eval (its CSV and scalars, the
               model back in train mode), and the launches of every step
               and of the eval's batches; logs the seconds per step and
               the eval's.
+  12. packed  packed (space-to-depth) decoder execution, the JAX package's
+              default, against the fine decoder. Serving, float32: h7 and
+              y1 (as phases 3–4), the packed eval-mode logits within
+              1e-5 · max|logit| of the fine ones, then for each
+              execution 30 timed forwards, peak memory, a profile (idle
+              share, convolution shares).
+              Training on GT voxelized in the step with the phase loss
+              (phase 6's batch), bf16 and float32, each execution: the
+              first step's launches (K1 4 + 4, K2 1, K3 1, K4 1; K4 at
+              s = 4 and one backward in packed voxel order for the packed
+              decoder, whose factor-64 logits the loss takes); packed, the
+              kernel step against the plain step (phase 5's and 10's
+              rules), the phase loss against the plain loss on the
+              unpacked logits (1e-6) and a falling loss; 20 timed steps and
+              a profile. K1's backward in packed voxel order at skip 5
+              (the packed step's gradient layout, no copy) and K4 at s = 4
+              against their plain versions, timed. The train CLI with
+              --decoder_execution=packed (4 steps, launches, K4 at s = 4)
+              and the eval CLI with --packed_inference against
+              --nopacked_inference (mean IoU within 1e-3).
 
 The float32 phases compute in float32: TF32 is switched off for
 convolutions and matmuls (phase 10 switches it on for its one TF32 row),
@@ -227,12 +250,13 @@ def camera_and_v2x(torch, res):
 
 
 def seeded_model(torch, CoreNet, config, seed, phase_output=False,
-                 compute_dtype=None):
+                 compute_dtype=None, **execution):
   """A CPU CoreNet with the port's seeded init and random BatchRenorm
   running statistics (mean ~ N(0, 0.3), var ~ U(0.5, 2)), and a CPU copy
-  of its state_dict."""
+  of its state_dict. `execution` (packed_decoder, pack_from_stage) goes
+  to CoreNet: it changes no weight."""
   model = CoreNet(config, phase_output=phase_output,
-                  compute_dtype=compute_dtype)
+                  compute_dtype=compute_dtype, **execution)
   model.reset_parameters(torch.Generator().manual_seed(seed))
   gen = torch.Generator().manual_seed(seed + 1)
   with torch.no_grad():
@@ -355,7 +379,8 @@ def serve(torch, op, label, infer, args, shape):
   counted (zeroed just before, read just after) and whose PMF is checked,
   then SERVE_RUNS forwards timed one by one on the host clock, each ended
   by a synchronize, then one profiled forward. Returns the launches of the
-  first forward and the median time per forward in ms."""
+  first forward and the figures: median (min, max) ms per forward,
+  scenes/s, peak memory, busy time, idle share, convolution shares."""
   torch.cuda.synchronize()
   op.launch_count = 0
   start = time.perf_counter()
@@ -381,14 +406,22 @@ def serve(torch, op, label, infer, args, shape):
                          "forwards")
   mem = torch.cuda.max_memory_allocated()
   ms = statistics.median(times)
-  log_profile(label, device_profile(torch, lambda: infer(*args)), ms)
+  profile = device_profile(torch, lambda: infer(*args))
+  log_profile(label, profile, ms)
+  row = {"median_ms": ms, "min_ms": min(times), "max_ms": max(times),
+         "scenes_per_s": BATCH * 1e3 / ms, "peak_gib": mem / 2 ** 30,
+         "busy_ms": profile["busy_ms"] if profile else None,
+         "idle_share": 1 - profile["busy_ms"] / ms if profile else None,
+         "conv_shares": profile["conv_shares"] if profile else None}
   log(f"{label} serve: PMF {list(shape)}, |sum - 1| <= {sum_err:.2e}, "
       f"skip_gather launches {launches} per forward; first forward "
       f"{first_s:.3f} s, then over {SERVE_RUNS} forwards median "
       f"{ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}) per batch "
       f"of {BATCH} = {BATCH * 1e3 / ms:.2f} scenes/s, peak memory "
-      f"{mem / 2**30:.2f} GiB")
-  return launches, ms
+      f"{mem / 2**30:.2f} GiB; share of the kernels' device time: " +
+      (", ".join(f"{k} {v:.3f}" for k, v in row["conv_shares"].items())
+       if profile else "not measured"))
+  return launches, row
 
 
 def check_plain_skips(torch, op, fgbg, label, infer, args):
@@ -2391,6 +2424,458 @@ def train_cli(torch, mods, dev):
   return figures
 
 
+# Phase 12: packed (space-to-depth) execution against the fine decoder.
+# Packed logits lie within this share of max|logit| of the fine ones, both
+# in float32 (TF32 off): they agree to about 3e-6 on the H100. The JAX
+# package's envelope, 2e-3 (corenet_tpu/eval/super_resolution.py:118-122),
+# covers the TPU's bf16 matrix units.
+PACKED_LOGIT_TOL = 1e-5
+# The eval CLI's mean IoU, packed against fine on the same weights: the
+# envelope moves only voxels at the decision boundary.
+PACKED_IOU_TOL = 1e-3
+# The decoder's executions that phase 12 compares: CoreNet's
+# packed_decoder and super_resolution's packed_execution.
+EXECUTIONS = {"fine": False, "packed pfs 5": True}
+
+
+def packed_logit_check(torch, CoreNet, config, state, label, image, v2s,
+                       offsets, dev):
+  """Eval-mode logits of the packed execution against the fine one's, on
+  the card with deterministic cuDNN: within PACKED_LOGIT_TOL·max|logit|.
+  Returns the share."""
+  logits = {}
+  torch.backends.cudnn.deterministic = True
+  try:
+    for name, packed in EXECUTIONS.items():
+      model = CoreNet(config, packed_decoder=packed, device=dev)
+      model.load_state_dict(state)
+      with torch.inference_mode():
+        logits[name] = model.eval()(image, v2s, offsets)
+      del model
+  finally:
+    torch.backends.cudnn.deterministic = False
+  ref = logits["fine"]
+  scale = float(ref.abs().max())
+  share = float((logits["packed pfs 5"] - ref).abs().max()) / scale
+  if not share <= PACKED_LOGIT_TOL:
+    raise AssertionError(f"{label}: packed logits differ from the fine ones "
+                         f"by {share} of max|logit| {scale} (tolerance "
+                         f"{PACKED_LOGIT_TOL})")
+  log(f"{label}: logits {list(ref.shape)}, packed against fine: "
+      f"{share:.2e} of max|logit| {scale:.3f} (tolerance "
+      f"{PACKED_LOGIT_TOL})")
+  return share
+
+
+def packed_serving(torch, op, CoreNet, CoreNetConfig, DecoderConfig, image,
+                   camera, v2x, offsets, dev):
+  """h7 (128³, batch 4) and y1 (32³ → 128³, 64 passes in one batch)
+  serving, float32, in each of EXECUTIONS: logits against the fine ones,
+  then the timed forwards. Returns {path: {execution: figures}}."""
+  from corenet_tpu_torch.eval.super_resolution import (
+      SuperResolutionInference, super_resolution_from_model)
+  from corenet_tpu_torch.train.step import compute_v2s
+  args = (image, camera, v2x, offsets, OUTPUT_RES)
+  out = {}
+  for path, native, seed in (("h7", OUTPUT_RES, SEED), ("y1", Y1_NATIVE,
+                                                        SEED + 10)):
+    config = CoreNetConfig(DecoderConfig(native, 2))
+    _, state = seeded_model(torch, CoreNet, config, seed)
+    m = OUTPUT_RES[0] // native[0]
+    v2s = compute_v2s(camera.to(dev), v2x.to(dev) * torch.tensor(
+        [1 / m, 1 / m, 1 / m, 1.0], device=dev))
+    sample = SuperResolutionInference(None, native, dev).get_native_offsets(
+        OUTPUT_RES, offsets.to(dev))[0]
+    rows = {"logit_share": packed_logit_check(
+        torch, CoreNet, config, state, f"packed {path}", image.to(dev), v2s,
+        sample, dev)}
+    for name, packed in EXECUTIONS.items():
+      infer = super_resolution_from_model(
+          CoreNet(config), state, native, packed_execution=packed,
+          device="cuda")
+      _, rows[name] = serve(torch, op, f"{path} {name}", infer, args,
+                            (BATCH,) + OUTPUT_RES + (2,))
+      del infer
+      torch.cuda.empty_cache()
+    out[path] = rows
+  return out
+
+
+def depth_to_space_64(logits, nc):
+  """Factor-64 logits [B, D/4, H/4, W/4, 64·C], channel order (rm0, rm1,
+  rm2, pz, py, px, c), → fine [B, D, H, W, C]."""
+  b, dq, hq, wq, _ = logits.shape
+  x = logits.reshape(b, dq, hq, wq, 2, 2, 2, 2, 2, 2, nc)
+  x = x.permute(0, 1, 4, 7, 2, 5, 8, 3, 6, 9, 10)
+  return x.reshape(b, 4 * dq, 4 * hq, 4 * wq, nc)
+
+
+@contextlib.contextmanager
+def caught_calls(module, name, record):
+  """Wraps module.name to append each call's arguments to `record`."""
+  real = getattr(module, name)
+
+  def wrapped(*args, **kwargs):
+    record.append((args, kwargs))
+    return real(*args, **kwargs)
+
+  setattr(module, name, wrapped)
+  try:
+    yield
+  finally:
+    setattr(module, name, real)
+
+
+def packed_training(torch, mods, CoreNet, config, batch, label, dtype,
+                    **execution):
+  """h7 training on GT voxelized in the step with the phase loss, in
+  `dtype`. The first step's launches (and, for a packed decoder, K4's
+  phase factor and the backward's packed-order launches), then, packed,
+  the kernel step against the plain step, the phase loss against the plain
+  loss on the unpacked logits and a falling loss; then TRAIN_RUNS timed
+  steps with a profile. Returns the figures."""
+  from corenet_tpu_torch.models.losses import iou_fgbg
+  from corenet_tpu_torch.train import gt
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import compute_v2s, make_train_step
+  from corenet_tpu_torch.voxel.packed import unpack_grid
+  op, fgbg, scatter, phased = mods
+  bf16 = dtype == torch.bfloat16
+  packed = execution.get("packed_decoder", False)
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 40,
+                          phase_output=True,
+                          compute_dtype=dtype if bf16 else None, **execution)
+  state = create_train_state(model, device=batch["image"].device)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+  phasings, backwards = [], []
+  torch.cuda.synchronize()
+  zero_counts(*mods)
+  start = time.perf_counter()
+  with caught_calls(phased, "phased_gt_forward", phasings), \
+      caught_calls(op, "skip_gather_backward", backwards):
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+  first_s = time.perf_counter() - start
+  launches = launch_counts(*mods)
+  s_factors = [args[1] for args, _ in phasings]
+  packed_order = sum(1 for args, _ in backwards if args[0].dim() == 4)
+  expected_s = [4] if packed else [2]
+  if (launches != (4, 4, 1, 1, 1) or s_factors != expected_s
+      or packed_order != (1 if packed else 0)):
+    raise AssertionError(
+        f"{label} step launched (skip_gather, its backward, fgbg_sums, "
+        f"block_scatter_or, phased_gt) {launches} times, phased_gt at s = "
+        f"{s_factors}, {packed_order} backwards in packed order; expected "
+        f"(4, 4, 1, 1, 1), s = {expected_s}, {1 if packed else 0}")
+  first_loss = float(metrics["loss"])
+  bad = [n for n, p in state.model.named_parameters()
+         if p.grad is None or p.grad.dtype != torch.float32
+         or not bool(torch.isfinite(p.grad).all())]
+  if not math.isfinite(first_loss) or bad:
+    raise AssertionError(f"{label}: loss {first_loss}, non-finite, missing "
+                         f"or non-float32 gradients {bad[:5]}")
+  log(f"{label}: first step {first_s:.3f} s, loss {first_loss:.6f}, "
+      f"launches {launches}, phased_gt at s = {s_factors}, {packed_order} "
+      "backward(s) in packed order; loss and gradients finite (float32)")
+  out = {"launches": launches, "phased_gt_s": s_factors,
+         "packed_order_backwards": packed_order, "first_s": first_s,
+         "first_loss": first_loss}
+  if packed:
+    loss_rel, grad_worst, grad_rel = compare_with_plain_step(
+        torch, mods, state, step, batch, label, bf16=bf16)
+    out.update(plain_loss_rel=loss_rel, plain_grads_rel=grad_rel,
+               plain_worst_grad_rel=grad_worst)
+    # The phase loss on the factor-64 logits against the plain loss on the
+    # same logits unpacked, eval mode (no statistics move).
+    packed_or, v2x = gt.voxelize_batch_packed_fgbg(
+        *(batch[k] for k in GT_KEYS), resolution=OUTPUT_RES, **H7_VOX)
+    v2s = compute_v2s(batch["camera"], v2x)
+    with torch.inference_mode():
+      logits = state.model.eval()(batch["image"], v2s, batch["grid_offset"])
+      b, dq, hq = logits.shape[:3]
+      phase_loss = float(iou_fgbg(phased.phased_gt(packed_or, 4),
+                                  logits.reshape(b, dq, hq, -1, 2)))
+      plain_loss = float(iou_fgbg(unpack_grid(packed_or, dtype=torch.uint8),
+                                  depth_to_space_64(logits, 2)))
+    state.model.train()
+    rel = abs(phase_loss - plain_loss) / abs(plain_loss)
+    if rel > 1e-6:
+      raise AssertionError(f"{label}: the phase loss {phase_loss} on "
+                           f"factor-64 logits and the plain loss "
+                           f"{plain_loss} on the unpacked ones differ by "
+                           f"{rel} relative")
+    log(f"{label}: the phase loss on factor-64 logits {list(logits.shape)} "
+        f"{phase_loss:.7f} equals the plain loss on the unpacked logits "
+        f"{plain_loss:.7f} ({rel:.2e} relative; tolerance 1e-6)")
+    out["phase_loss_rel"] = rel
+    del logits
+    state = loss_steps(state, step, batch, first_loss, label)
+  _, timed = timed_training(torch, label, step, state, batch)
+  out.update(timed)
+  return out
+
+
+def packed_backward_row(torch, op, v2s, sample, gen, fine_rows):
+  """K1's backward in packed voxel order at h7's skip 5 (batch 4, 64³
+  fine, 12 channels), f32 and bf16, dout in the packed step's layout (the
+  skip's slice of the per-phase concatenation's gradient): kernel against
+  the float64 scatter-add, its time beside the fine order's (`fine_rows`,
+  phase 2), the plain version's, index_add_'s, the bound, the run lengths
+  along z, and the time of the copy to contiguous it does not need."""
+  from corenet_tpu_torch.models import skip
+  dev = v2s.device
+  b = v2s.shape[0]
+  div, h2, c = SKIPS[5]
+  fine = (OUTPUT_RES[0] // div,) * 3
+  half = tuple(v // 2 for v in fine)
+  m = half[0] * half[1] * half[2]
+  matrix = v2s * torch.tensor([div, div, div, 1.0], device=dev)
+  px, py = skip.voxel_pixel_indices(matrix, sample, fine, h2 - 2, h2 - 2,
+                                    packed=True)
+  fine_px, fine_py = skip.voxel_pixel_indices(matrix, sample, fine, h2 - 2,
+                                              h2 - 2)
+  mean_run, chunk, flushes = column_runs(
+      torch, op, px.view(b * 8, m), py.view(b * 8, m), h2, half, c)
+  fine_run, _, _ = column_runs(torch, op, fine_px, fine_py, h2, fine, c)
+  bidx = torch.arange(b, device=dev)[:, None]
+  flat = (bidx * h2 * h2 + py.long() * h2 + px.long()).reshape(-1)
+  cx = TOWER_CHANNELS[5]
+  rows = []
+  for dtype in (torch.float32, torch.bfloat16):
+    dout = torch.randn((b, 8, m, c), generator=gen).to(dev, dtype)
+    cat_grad = torch.zeros((b, 8, cx + c) + half, device=dev, dtype=dtype)
+    cat_grad[:, :, cx:] = dout.view((b, 8) + half + (c,)).permute(
+        0, 1, 5, 2, 3, 4)
+    step = cat_grad[:, :, cx:].permute(0, 1, 3, 4, 5, 2).reshape(b, 8, m, c)
+    if step.stride() != (8 * (cx + c) * m, (cx + c) * m, 1, m):
+      raise AssertionError(f"the packed step's layout has strides "
+                           f"{step.stride()}")
+    got = op.skip_gather_backward(step, px, py, h2, h2, grid_resolution=half)
+    plain = op.skip_gather_backward_reference(dout, px, py, h2, h2)
+    ref64 = op.skip_gather_backward_reference(dout.double(), px, py, h2, h2)
+    mass = op.skip_gather_backward_reference(dout.double().abs(), px, py, h2,
+                                             h2)
+    torch.cuda.synchronize()
+    bound = 1e-5 * mass + 1e-30
+    if dtype == torch.bfloat16:
+      bound = bound + bf16_ulp(torch, ref64)
+    for what, out in (("kernel", got), ("plain version", plain)):
+      excess = float(((out.double() - ref64).abs() - bound).max())
+      if excess > 0:
+        raise AssertionError(f"skip_gather backward in packed order "
+                             f"({what}) exceeds its bound by {excess} "
+                             f"({dtype})")
+    es = dout.element_size()
+    nbytes = b * 8 * m * (c * es + 8) + b * h2 * h2 * c * es
+    dout2d = dout.reshape(-1, c)
+    name = str(dtype).replace("torch.", "")
+    row = {
+        "stage": 5, "dtype": name, "dfmap": [b, h2, h2, c],
+        "dout": [b, 8, m, c], "dout_strides": list(step.stride()),
+        "grid_per_phase": list(half), "bytes": nbytes,
+        "mean_run_along_z": mean_run, "fine_mean_run_along_z": fine_run,
+        "z_chunk": chunk, "flushes": flushes,
+        "max_abs_err": float((got.float() - plain.float()).abs().max()),
+        "ms": device_ms(torch, lambda: op.skip_gather_backward(
+            step, px, py, h2, h2, grid_resolution=half)),
+        "fine_order_ms": next(r["ms"] for r in fine_rows
+                              if r["stage"] == 5 and r["dtype"] == name),
+        "copy_ms": device_ms(torch, lambda: step.contiguous()),
+        "plain_ms": device_ms(torch, lambda: op.
+                              skip_gather_backward_reference(
+                                  dout, px, py, h2, h2)),
+        "library_ms": device_ms(torch, lambda: torch.zeros(
+            (b * h2 * h2, c), device=dev, dtype=dtype).index_add_(
+                0, flat, dout2d)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
+    rows.append(row)
+    log(f"skip_gather backward in packed order, stage 5 {name} "
+        f"[{b},8,{m},{c}] strides {tuple(step.stride())}: kernel "
+        f"{row['ms']:.4f} ms (fine order {row['fine_order_ms']:.4f}), plain "
+        f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} ms ({nbytes} B); copy to contiguous not "
+        f"made ({row['copy_ms']:.4f} ms); mean run along z {mean_run:.3f} "
+        f"(fine order {fine_run:.3f}), z chunk {chunk}, flushes {flushes}")
+  return rows
+
+
+def phased_gt_s4_row(torch, phased, batch):
+  """K4 at s = 4 at h7 training's shapes (the phase-6 triangle batch's
+  packed GT): kernel against plain bit for bit, times, bytes bound."""
+  from corenet_tpu_torch.train import gt
+  packed_or, _ = gt.voxelize_batch_packed_fgbg(
+      *(batch[k] for k in GT_KEYS), resolution=OUTPUT_RES, **H7_VOX)
+  got = phased.phased_gt(packed_or, 4)
+  plain = phased.phased_gt_reference(packed_or, 4)
+  torch.cuda.synchronize()
+  if not torch.equal(got, plain):
+    raise AssertionError("phased_gt at s = 4 differs from its plain "
+                         "version at the step's shapes")
+  nbytes = packed_or.numel() * 4 + got.numel()
+  row = {"s": 4, "packed": list(packed_or.shape), "out": list(got.shape),
+         "bytes": nbytes, "max_abs_err": 0.0,
+         "ms": device_ms(torch, lambda: phased.phased_gt(packed_or, 4)),
+         "s2_ms": device_ms(torch, lambda: phased.phased_gt(packed_or, 2)),
+         "plain_ms": device_ms(
+             torch, lambda: phased.phased_gt_reference(packed_or, 4)),
+         "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+  log(f"phased_gt at s = 4 {list(packed_or.shape)} -> {list(got.shape)}: "
+      f"kernel {row['ms']:.4f} ms (s = 2: {row['s2_ms']:.4f}), plain "
+      f"{row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f}"
+      f" ms ({nbytes} B); equal bit for bit")
+  return row
+
+
+def packed_clis(torch, mods, CoreNet, config, dev):
+  """The train CLI with --decoder_execution=packed (4 steps of h7 in bf16
+  on phase 7's seeded dataset, no recurrent eval) and the eval CLI with
+  --packed_inference against --nopacked_inference (phase 7's eval, no
+  tiles) on a `.cpt` of the seeded h7 model."""
+  from corenet_tpu_torch.cli import eval as eval_cli
+  from corenet_tpu_torch.cli import train as train_cli_mod
+  from corenet_tpu_torch.config import config as cfg
+  from corenet_tpu_torch.data.manager import DatasetManager
+  from corenet_tpu_torch.ops import phased_gt as phased
+  from corenet_tpu_torch.train import pipeline as pipeline_mod
+  from corenet_tpu_torch.train.checkpoint import CheckpointManager
+  from corenet_tpu_torch.train.state import create_train_state
+  out = {"step_launches": [], "step_s": []}
+  batches = -(-EVAL_SCENES // BATCH)
+  real_make_step = pipeline_mod.make_train_step
+
+  def counted_step(*args, **kwargs):
+    step = real_make_step(*args, **kwargs)
+
+    def wrapped(state, batch):
+      torch.cuda.synchronize()
+      counts = launch_counts(*mods)
+      start = time.perf_counter()
+      result = step(state, batch)
+      torch.cuda.synchronize()
+      out["step_s"].append(time.perf_counter() - start)
+      out["step_launches"].append(tuple(
+          a - b for a, b in zip(launch_counts(*mods), counts)))
+      return result
+
+    return wrapped
+
+  with tempfile.TemporaryDirectory() as root:
+    manifest, meshes_dir = write_eval_dataset(root, SEED + 50)
+    full = h7_train_config(manifest, meshes_dir, root)
+    full["eval"] = []
+    full["train"].update(checkpoint_interval=10 ** 6,
+                         persistent_checkpoint_interval=10 ** 6)
+    path = os.path.join(root, "h7_train.json")
+    with open(path, "w") as f:
+      json.dump(full, f)
+    phasings = []
+    pipeline_mod.make_train_step = counted_step
+    try:
+      with caught_calls(phased, "phased_gt_forward", phasings):
+        start = time.perf_counter()
+        trained = train_cli_mod.main([f"--config_path={path}",
+                                      "--max_steps=16",
+                                      "--decoder_execution=packed"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - start
+    finally:
+      pipeline_mod.make_train_step = real_make_step
+    s_factors = sorted({args[1] for args, _ in phasings})
+    if not (trained.model.packed_decoder and trained.model.phase_output
+            and trained.model.compute_dtype == torch.bfloat16
+            and trained.state.global_step == 16
+            and out["step_launches"] == [(4, 4, 1, 1, 1)] * 4
+            and s_factors == [4]):
+      raise AssertionError(
+          f"the packed train CLI: packed {trained.model.packed_decoder}, "
+          f"step {trained.state.global_step}, launches "
+          f"{out['step_launches']}, phased_gt at s = {s_factors}")
+    log(f"packed train CLI: 4 steps of h7 in bf16 with "
+        f"--decoder_execution=packed in {train_s:.1f} s; launches "
+        f"{out['step_launches'][0]} every step, phased_gt at s = 4; seconds "
+        "per step " + ", ".join(f"{v:.3f}" for v in out["step_s"]))
+    out["train_call_s"] = train_s
+    del trained
+    torch.cuda.empty_cache()
+
+    eval_dict = h7_eval_config(manifest, meshes_dir, "FG_BG")
+    eval_dict["num_qualitative_results"] = 0
+    model, _ = seeded_model(torch, CoreNet, config, SEED)
+    full_config = {
+        "string_templates": [], "output_path": os.path.join(root, "train"),
+        "train": {"data": eval_dict["data"],
+                  "resnet50_imagenet_checkpoint": ""},
+        "eval": [{"start_step": 0, "interval": 10 ** 9,
+                  "persistent_checkpoint": False, "config": eval_dict}]}
+    classes = list(DatasetManager(cfg.config_from_dict(
+        cfg.EvalConfig, eval_dict).data).classes)
+    cpt = CheckpointManager(os.path.join(root, "cpt")).save_state(
+        create_train_state(model, device=dev),
+        {"full_config": full_config, "classes": classes})
+    ious = {}
+    for flag in ("--packed_inference", "--nopacked_inference"):
+      zero_counts(*mods)
+      start = time.perf_counter()
+      ious[flag] = eval_cli.main([f"--checkpoint_path={cpt}",
+                                  f"--output_path={root}/{flag[2:]}",
+                                  flag])["full_eval"]
+      torch.cuda.synchronize()
+      out[f"eval{flag[1:]}_s"] = time.perf_counter() - start
+      launches = launch_counts(*mods)
+      if launches != (4 * batches, 0, 0, batches, 0):
+        raise AssertionError(f"the eval CLI with {flag} launched {launches}")
+    diff = abs(ious["--packed_inference"] - ious["--nopacked_inference"])
+    if not diff <= PACKED_IOU_TOL:
+      raise AssertionError(f"the eval CLI's mean IoU packed "
+                           f"{ious['--packed_inference']} and fine "
+                           f"{ious['--nopacked_inference']} differ by {diff}")
+    log(f"packed eval CLI: mean IoU {ious['--packed_inference']:.6f} with "
+        f"--packed_inference, {ious['--nopacked_inference']:.6f} with "
+        f"--nopacked_inference (difference {diff:.2e}, tolerance "
+        f"{PACKED_IOU_TOL}); K1 {4 * batches} and K3 {batches} launches in "
+        f"{batches} batches each")
+    out.update(eval_iou=ious, eval_iou_diff=diff)
+  return out
+
+
+def packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
+                 camera, v2x, offsets, dev, fine_bwd_rows):
+  """Phase 12: packed (space-to-depth) execution against the fine
+  decoder. Returns the figures and the two new kernel rows."""
+  op, fgbg, scatter, phased = mods
+  h7 = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
+  start = time.perf_counter()
+  out = {"serve": packed_serving(torch, op, CoreNet, CoreNetConfig,
+                                 DecoderConfig, image, camera, v2x, offsets,
+                                 dev)}
+  torch.cuda.empty_cache()
+  host, _ = triangle_batch(torch, image, camera, SEED + 41)
+  batch = {k: v.to(dev) for k, v in host.items()}
+  train = {}
+  for dtype in (torch.bfloat16, torch.float32):
+    for name, packed in EXECUTIONS.items():
+      key = f"{name}, {str(dtype).replace('torch.', '')}"
+      train[key] = packed_training(torch, mods, CoreNet, h7, batch,
+                                   f"h7 train {key}", dtype,
+                                   packed_decoder=packed)
+      torch.cuda.empty_cache()
+  out["train"] = train
+  from corenet_tpu_torch.train.step import compute_v2s
+  v2s = compute_v2s(camera.to(dev), v2x.to(dev))
+  gen = torch.Generator().manual_seed(SEED + 120)
+  out["k1_bwd_packed"] = packed_backward_row(torch, op, v2s, offsets.to(dev),
+                                             gen, fine_bwd_rows)
+  out["k4_s4"] = phased_gt_s4_row(torch, phased, batch)
+  del batch
+  torch.cuda.empty_cache()
+  out["clis"] = packed_clis(torch, mods, CoreNet, h7, dev)
+  out["seconds"] = time.perf_counter() - start
+  log(f"packed phase: {out['seconds']:.1f} s")
+  return out
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -2515,7 +3000,7 @@ def main() -> int:
   h7, h7_state = seeded_model(
       torch, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)), SEED)
   infer = super_resolution_from_model(h7, h7_state, OUTPUT_RES, device="cuda")
-  main_launches, h7_ms = serve(torch, op, "h7", infer, args,
+  main_launches, h7_serve = serve(torch, op, "h7", infer, args,
                                (BATCH,) + OUTPUT_RES + (2,))
   check_plain_skips(torch, op, fgbg, "h7", infer, args)
   del h7, infer
@@ -2525,7 +3010,7 @@ def main() -> int:
   y1_config = CoreNetConfig(DecoderConfig(Y1_NATIVE, 2))
   y1, y1_state = seeded_model(torch, CoreNet, y1_config, SEED + 10)
   infer = super_resolution_from_model(y1, y1_state, Y1_NATIVE, device="cuda")
-  _, y1_ms = serve(torch, op, "y1", infer, args,
+  _, y1_serve = serve(torch, op, "y1", infer, args,
                      (BATCH,) + OUTPUT_RES + (2,))
   check_plain_skips(torch, op, fgbg, "y1", infer, args)
   pmf = infer(*args)
@@ -2616,6 +3101,11 @@ def main() -> int:
 
   # 11. The train CLI: h7 in bf16 with a recurrent eval, then a resume.
   train_cli_figures = train_cli(torch, mods, dev)
+  torch.cuda.empty_cache()
+
+  # 12. Packed (space-to-depth) execution against the fine decoder.
+  packed = packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
+                        image, camera, v2x, offsets, dev, bwd_rows)
 
   # Launches per path, each counted from zero just before the path ran:
   # one serving forward, one training step, one eval run of 3 batches, one
@@ -2635,7 +3125,9 @@ def main() -> int:
             "h7 train CLI, 1 step":
                 train_cli_figures["step_launches"][0][i],
             f"h7 train CLI eval, {-(-EVAL_SCENES // BATCH)} batches":
-                train_cli_figures["eval_launches"][i]}
+                train_cli_figures["eval_launches"][i],
+            "h7 train packed bf16 (GT in step), 1 step":
+                packed["train"]["packed pfs 5, bfloat16"]["launches"][i]}
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -2722,6 +3214,37 @@ def main() -> int:
            "corenet_tpu/ops/block_scatter.py:219", 3, gt_launches[3], k3_row),
           ("phased_gt", "phased_gt", "corenet_tpu/ops/phased_gt.py:128", 4,
            gt_launches[4], k4_row))]
+  packed_train = packed["train"]["packed pfs 5, bfloat16"]
+  k1p = {row["dtype"]: row for row in packed["k1_bwd_packed"]}
+  k4 = packed["k4_s4"]
+  packed_entries = [
+      {"name": "skip_gather_bwd (packed voxel order)", "route": "cuda",
+       "source": "corenet_tpu_torch/csrc/skip_gather.cu",
+       "replaces": "corenet_tpu/ops/skip_gather.py:139",
+       # Per packed h7 step (bf16, the JAX default): skip 5's backward.
+       "launches": packed_train["packed_order_backwards"],
+       "max_abs_err": max(row["max_abs_err"] for row in k1p.values()),
+       **{key: k1p["float32"][key]
+          for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                      "fine_order_ms", "copy_ms", "mean_run_along_z",
+                      "fine_mean_run_along_z")},
+       "bound_by": "bytes",
+       "library_call": "torch.zeros(...).index_add_(0, flat_index, dout)",
+       "bfloat16": {key: k1p["bfloat16"][key]
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                "fine_order_ms", "copy_ms")},
+       "timing": entry["timing"], "shapes": packed["k1_bwd_packed"]},
+      {"name": "phased_gt (s = 4)", "route": "cuda",
+       "source": "corenet_tpu_torch/csrc/phased_gt.cu",
+       "replaces": "corenet_tpu/ops/phased_gt.py:128",
+       "launches": packed_train["phased_gt_s"].count(4),
+       **{key: k4[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "library_ms", "s2_ms")},
+       "bound_by": "bytes", "library_call": None,
+       "timing": entry["timing"], "shapes": [k4]}]
+  entry["serve"] = {"h7": h7_serve, "y1": y1_serve}
+  entry["packed"] = {key: packed[key] for key in ("serve", "train", "clis",
+                                                  "seconds")}
   gt_entries[0]["gt_split"] = gt_split
   gt_entries[0]["eval_h7"] = eval_times
   gt_entries[0]["serve_cli"] = cli_times
@@ -2730,8 +3253,8 @@ def main() -> int:
   entry["train_bf16"] = bf16
   entry["train_cli"] = {k: v for k, v in train_cli_figures.items()
                         if k != "losses"}
-  log(f"h7 scenes/s {BATCH * 1e3 / h7_ms:.3f}; y1 scenes/s "
-      f"{BATCH * 1e3 / y1_ms:.3f} (median of {SERVE_RUNS} forwards); h7 "
+  log(f"h7 scenes/s {h7_serve['scenes_per_s']:.3f}; y1 scenes/s "
+      f"{y1_serve['scenes_per_s']:.3f} (median of {SERVE_RUNS} forwards); h7 "
       f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
       f"{BATCH * 1e3 / gt_split['step_ms']:.3f} on GT voxelized in the step, "
       f"y1 training scenes/s {BATCH * 1e3 / y1_split['step_ms']:.3f} on the "
@@ -2744,7 +3267,8 @@ def main() -> int:
       f"float32 with TF32 "
       f"{BATCH * 1e3 / bf16['h7_gt_tf32']['median_ms']:.3f}")
   log(smi)
-  log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries}))
+  log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries
+                  + packed_entries}))
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,
       "count": torch.cuda.device_count()}}))

@@ -6,9 +6,9 @@ counterpart is the file of the same path there:
   csrc/      hand-written CUDA kernels (sm_90a), plain C interfaces
   kernels/   builds csrc/ with nvcc at first use and loads it with ctypes
   ops/       kernel wrappers, each beside its plain PyTorch version
-  models/    ResNet-50, BatchRenorm, decoder (with its phase-major
-             output), ray-traced skips, losses, the weight bridge from
-             the JAX package's variables
+  models/    ResNet-50, BatchRenorm, decoder (fine or space-to-depth
+             packed, with its phase-major output), ray-traced skips,
+             losses, the weight bridge from the JAX package's variables
   voxel/     bit-packed grids and their interior fill, the blocked
              triangle rasterizer; the general rasterizer, the dense
              interior fill, label composition, ray-parity voxelization
@@ -41,8 +41,10 @@ phase loss for FG_BG, the general rasterizer for every other
 configuration, ray parity); the eval pipeline from a dataset manifest to
 `voxel_metrics.csv` and the qualitative tiles; serving from a `.cpt` file
 through the eval and demo CLIs; training through `TrainPipeline` and the
-train CLI. float32 or bf16 compute (`compute_dtype`), fine (unpacked)
-execution, one process. Public functions keep the JAX package's channel-last layouts.
+train CLI; the decoder fine or packed (`packed_decoder`, the JAX
+package's space-to-depth execution) in each. float32 or bf16 compute
+(`compute_dtype`), one process. Public functions keep the JAX package's
+channel-last layouts.
 Nothing here imports JAX, corenet_tpu, pandas, msgpack or tensorboard
 at import time; json5, PIL (image decoding) and tensorboard are
 optional.

@@ -40,8 +40,8 @@ class ProgramArgs:
   high_realism: bool = flags.flag("Use the PBRT render as input",
                                   default=True)
   packed_inference: bool = flags.flag(
-      "Packed (space-to-depth) decoder execution for eligible models; not "
-      "ported yet, so the fine decoder runs and a warning says so",
+      "Packed (space-to-depth) decoder execution for eligible models: the "
+      "same weights, logits within the convolutions' rounding",
       default=True)
   device: str = flags.flag(
       "Torch device to run on; without a CUDA card pass 'cpu'",
@@ -57,7 +57,7 @@ def main(argv=None):
         "checkpoint")
   device = checked_device(args.device)
 
-  from corenet_tpu_torch.cli.eval import PACKED_WARNING, load_model
+  from corenet_tpu_torch.cli.eval import load_model
   from corenet_tpu_torch.data import batching, scene as scene_lib
   from corenet_tpu_torch.data.dataset import DatasetElement
   from corenet_tpu_torch.eval.qualitative import visualize_scene_output
@@ -90,11 +90,9 @@ def main(argv=None):
       max_bbox_pixels=DEMO_WINDOW_PIXELS)
 
   model, _, _, _ = load_model(args.checkpoint)
-  if args.packed_inference:
-    log.warning(PACKED_WARNING)
   inference = super_resolution_from_model(
       model, model.state_dict(), model.config.decoder.resolution,
-      device=device)
+      packed_execution=args.packed_inference, device=device)
   pmf = inference(inputs["image"], inputs["camera"], v2x,
                   inputs["grid_offset"], res)
 

@@ -36,9 +36,6 @@ from corenet_tpu_torch.utils.summary import SummaryWriter
 
 log = logging.getLogger(__name__)
 
-PACKED_WARNING = ("--packed_inference: packed (space-to-depth) execution "
-                  "is not ported yet; running the fine decoder")
-
 
 @dataclasses.dataclass
 class ProgramArgs:
@@ -49,8 +46,8 @@ class ProgramArgs:
   max_scenes: int = flags.flag(
       "Evaluate at most this many scenes per eval (<=0: all)", default=-1)
   packed_inference: bool = flags.flag(
-      "Packed (space-to-depth) decoder execution for eligible models; not "
-      "ported yet, so the fine decoder runs and a warning says so. "
+      "Packed (space-to-depth) decoder execution for eligible models: the "
+      "same weights, logits within the convolutions' rounding. "
       "--nopacked_inference asks for the fine decoder", default=True)
   batched_offsets: bool = flags.flag(
       "Super-resolution: decode all m^3 offsets as one batch (engages "
@@ -78,12 +75,10 @@ def main(argv=None):
   args = flags.parse_flags(ProgramArgs, argv)
   checked_device(args.device)
   model, full_config, _, global_step = load_model(args.checkpoint_path)
-  if args.packed_inference:
-    log.warning(PACKED_WARNING)
   inference = super_resolution_from_model(
       model, model.state_dict(), model.config.decoder.resolution,
       batch_offsets=None if args.batched_offsets else False,
-      device=args.device)
+      packed_execution=args.packed_inference, device=args.device)
 
   results = {}
   for rec in full_config.eval:

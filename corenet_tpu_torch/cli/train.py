@@ -14,8 +14,9 @@ Usage:
       [--max_steps=N] [--device=cpu]
 
 Not ported yet, each refused with its slice: --multihost and --space > 1
-(slice 7), --gt_mode=host (slice 8b), --decoder_execution=packed (slice
-6). --compilation_cache_dir is XLA's and has no effect here.
+(slice 7), --gt_mode=host (slice 8b). --compilation_cache_dir is XLA's
+and has no effect here. The recurrent evals decode with the fine decoder
+whatever --decoder_execution trains (train/pipeline.py).
 """
 
 from __future__ import annotations
@@ -63,8 +64,9 @@ class ProgramArgs:
       "'bfloat16' (the default; f32 params/stats/logits/gradients) or"
       " 'float32'", default="bfloat16")
   decoder_execution: str = flags.flag(
-      "'auto' or 'fine' (the fine decoder); 'packed' is not ported yet "
-      "(slice 6)", default="auto")
+      "'fine', 'packed' (the space-to-depth decoder; the same parameters "
+      "and checkpoints) or 'auto' (packed where eligible)",
+      default="auto")
   phase_loss: str = flags.flag(
       "'auto' (on for eligible FG_BG configs), 'on', or 'off': train the"
       " loss on phase-major final-stage logits", default="auto")

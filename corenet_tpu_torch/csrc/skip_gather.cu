@@ -53,6 +53,17 @@
 // structure are columns of depth 1: one thread and one atomic per (voxel,
 // 4 channels), still correct.
 //
+// Packed (space-to-depth) execution. The packed decoder's skip takes its
+// voxels phase by phase: 8 grids of D/2 x H/2 x W/2, phase (pz, py, px)
+// holding fine voxels (2Z + pz, 2Y + py, 2X + px). Its concatenation puts
+// channel c of phase p at p * C_tot + c, so the gradient arrives as
+// dout [B, 8, N/8, C] with element strides (8 * C_tot * N/8, C_tot * N/8,
+// 1, N/8): not a [B, N, C] view, since the phase's stride is not N/8
+// times the voxel's. The walk takes the phase as a fourth index: each
+// (scene, phase) is walked like a fine skip at half the resolution, into
+// the scene's map. A run of equal pixels along z then steps two fine
+// voxels at a time.
+//
 // What bounds it at the 64^3 skip (PERF.md): the runs are short (4.2
 // voxels on average: perspective moves a column's pixel every few steps
 // in z), so it still issues 0.85 M vector atomics, 3.7x fewer than one
@@ -125,12 +136,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// How a launch walks dout [B, N, C] (element strides sb, sn, sc): N =
-// depth * cols voxels in (z, column) order, `sets` sets of NG groups of V
+// How a launch walks dout [B, P, N, C] (element strides sb, sp, sn, sc):
+// per scene P phases of N = depth * cols voxels each in (z, column) order,
+// all scattering into the scene's map; `sets` sets of NG groups of V
 // channels, chunks of z_chunk voxels along z.
 struct Walk {
-  long long sb, sn, sc;
-  int n, depth, cols, sets, z_chunk, chunks, h2, w2, c;
+  long long sb, sp, sn, sc;
+  int n, phases, depth, cols, sets, z_chunk, chunks, h2, w2, c;
 };
 
 // Voxels loaded into registers before any is summed. More keeps more
@@ -164,19 +176,23 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kChannels = NG * V;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= total) return;
-  // i = ((b * chunks + chunk) * sets + set) * cols + column.
+  // i = (((b * P + p) * chunks + chunk) * sets + set) * cols + column.
   const int column = i % w.cols;
   int rest = i / w.cols;
   const int set = rest % w.sets;
   rest /= w.sets;
   const int chunk = rest % w.chunks;
-  const int b = rest / w.chunks;
+  const int bp = rest / w.chunks;  // scene * P + phase
+  const int b = bp / w.phases;
+  const int p = bp - b * w.phases;
   const int z_begin = chunk * w.z_chunk;
   const int steps = min(w.z_chunk, w.depth - z_begin);
-  const int first = z_begin * w.cols + column;  // voxel within the scene
+  const int first = z_begin * w.cols + column;  // voxel within the phase
   const long long z_stride = static_cast<long long>(w.cols) * w.sn;
-  const T* src = dout + b * w.sb + first * w.sn + set * kChannels * w.sc;
-  const long long scene = static_cast<long long>(b) * w.n + first;
+  const T* src = dout + b * w.sb + p * w.sp + first * w.sn +
+                 set * kChannels * w.sc;
+  // The indices are [B, P * N]: phase p's voxels follow phase p - 1's.
+  const long long scene = static_cast<long long>(bp) * w.n + first;
   const int* ix = px + scene;
   const int* iy = py + scene;
   float* dst = acc + static_cast<long long>(b) * w.h2 * w.w2 * w.c +
@@ -233,7 +249,7 @@ cudaError_t launch_scatter(const void* dout, const int* px, const int* py,
                            float* acc, int b, Walk w, cudaStream_t stream) {
   w.sets = w.c / (NG * V);
   const long long total =
-      static_cast<long long>(b) * w.chunks * w.sets * w.cols;
+      static_cast<long long>(b) * w.phases * w.chunks * w.sets * w.cols;
   if (total > INT_MAX) return cudaErrorInvalidValue;
   const int t = static_cast<int>(total);
   const int blocks = (t + kThreads - 1) / kThreads;
@@ -301,26 +317,33 @@ int skip_gather_fwd(const void* fmap, const int* px, const int* py,
   }
 }
 
-// Scatter-adds dout [b, n, c] (f32 when elem_bytes is 4, bf16 when 2;
-// element strides stride_b, stride_n, stride_c) into dfmap [b, h2, w2, c]
-// of dout's type, through the f32 accumulator acc of the same shape, which
-// may be dfmap itself for f32. The n voxels are `depth` slices of n / depth
+// Scatter-adds dout [b, phases, n, c] (f32 when elem_bytes is 4, bf16
+// when 2; element strides stride_b, stride_p, stride_n, stride_c) into
+// dfmap [b, h2, w2, c] of dout's type, through the f32 accumulator acc of
+// the same shape, which may be dfmap itself for f32. px and py are
+// [b, phases * n]. Each phase's n voxels are `depth` slices of n / depth
 // columns, (z, column) order; each thread walks z_chunk of them along z.
+// The fine decoder's skips have one phase; the packed decoder's have 8,
+// one grid of D/2 x H/2 x W/2 voxels each (models/skip.py).
 // Returns a cudaError_t as int: 0 when every launch succeeded.
 int skip_gather_bwd(const void* dout, const int* px, const int* py,
-                    float* acc, void* dfmap, int b, int n, int h2, int w2,
-                    int c, long long stride_b, long long stride_n,
+                    float* acc, void* dfmap, int b, int phases, int n,
+                    int h2, int w2, int c, long long stride_b,
+                    long long stride_p, long long stride_n,
                     long long stride_c, int depth, int z_chunk,
                     int elem_bytes, void* stream) {
-  if (b <= 0 || n <= 0 || h2 <= 0 || w2 <= 0 || c <= 0 || depth <= 0 ||
-      n % depth != 0 || z_chunk <= 0 || stride_b < 0 || stride_n < 0 ||
-      stride_c < 0 || static_cast<long long>(h2) * w2 * c > INT_MAX ||
+  if (b <= 0 || phases <= 0 || n <= 0 || h2 <= 0 || w2 <= 0 || c <= 0 ||
+      depth <= 0 || n % depth != 0 || z_chunk <= 0 || stride_b < 0 ||
+      stride_p < 0 || stride_n < 0 || stride_c < 0 ||
+      static_cast<long long>(h2) * w2 * c > INT_MAX ||
+      static_cast<long long>(b) * phases * n > INT_MAX ||
       (elem_bytes != 4 && elem_bytes != 2) ||
       (elem_bytes == 4 && dfmap != acc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Walk w{stride_b, stride_n, stride_c, n, depth, n / depth, 0,
-               z_chunk, (depth + z_chunk - 1) / z_chunk, h2, w2, c};
+  const Walk w{stride_b, stride_p, stride_n, stride_c, n, phases, depth,
+               n / depth, 0, z_chunk, (depth + z_chunk - 1) / z_chunk, h2,
+               w2, c};
   const auto s = static_cast<cudaStream_t>(stream);
   const long long cells = static_cast<long long>(b) * h2 * w2 * c;
   cudaError_t err = cudaMemsetAsync(acc, 0, cells * sizeof(float), s);

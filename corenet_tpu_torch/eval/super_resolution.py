@@ -1,13 +1,15 @@
 """Super-resolution inference: evaluate a native-resolution model at an
 integer-multiple output resolution by interleaving m³ shifted passes.
 
-Counterpart of corenet_tpu/eval/super_resolution.py with
-`packed_execution=False`: the output resolution must be the native one
-times an integer m; the model decodes once per offset of the m³
-shifted-offset lattice with the view → voxel transform scaled by 1/m, and
-the PMFs interleave into the fine grid. The image is encoded once and only
-the decoder runs per offset. With `batch_offsets` the m³ offsets fold into
-the batch dimension of one decode instead of a loop of m³ decodes.
+Counterpart of corenet_tpu/eval/super_resolution.py: the output
+resolution must be the native one times an integer m; the model decodes
+once per offset of the m³ shifted-offset lattice with the view → voxel
+transform scaled by 1/m, and the PMFs interleave into the fine grid. The
+image is encoded once and only the decoder runs per offset. With
+`batch_offsets` the m³ offsets fold into the batch dimension of one
+decode instead of a loop of m³ decodes. With `packed_execution` the
+decoder runs packed (models/packing.py) where the model's configuration
+allows it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from corenet_tpu_torch.models.corenet import CoreNet
+from corenet_tpu_torch.models.decoder import packed_eligible
 from corenet_tpu_torch.models.resnet50 import ResNet50Features
 from corenet_tpu_torch.train.step import compute_v2s
 from corenet_tpu_torch.utils.device import checked_device
@@ -126,19 +129,31 @@ class _MultiOffset(nn.Module):
         for offset in grid_offsets])
 
 
+def _twin(model: CoreNet, packed_execution: bool) -> CoreNet:
+  """An eval-mode CoreNet of `model`'s architecture on the meta device
+  with fine float32 logits, packed where asked and eligible."""
+  dc = model.config.decoder
+  packed = packed_execution and packed_eligible(
+      dc.resolution, dc.last_upscale_factor, model.pack_from_stage)
+  return CoreNet(model.config, compute_dtype=model.compute_dtype,
+                 packed_decoder=packed,
+                 pack_from_stage=model.pack_from_stage, device="meta")
+
+
 def super_resolution_inference_factory(
     model: CoreNet, resolution: Tuple[int, int, int],
-    batch_offsets: Optional[bool] = None, device="cuda"
+    batch_offsets: Optional[bool] = None, packed_execution: bool = True,
+    device="cuda"
 ) -> Callable[[Mapping[str, torch.Tensor]], SuperResolutionInference]:
   """Returns make(weights) → SuperResolutionInference, where `weights` is
   a CoreNet state dict (the keys of `model.state_dict()`, such as
   models/convert.py's `state_dict_from_jax` gives).
 
-  `model` supplies the architecture and the compute dtype only (a bf16
-  training model is evaluated in bf16, as the JAX package's recurrent
-  evals are). Every product evaluates one eval-mode twin of it (built on
-  the meta device, fine float32 logits) through
-  `torch.func.functional_call` over the given tensors, moved to `device`:
+  `model` supplies the architecture, the compute dtype and
+  pack_from_stage only (a bf16 training model is evaluated in bf16, as
+  the JAX package's recurrent evals are). Every product evaluates one
+  eval-mode twin of it (built on the meta device, fine float32 logits)
+  through `torch.func.functional_call` over the given tensors, moved to `device`:
   tensors already there are used without a copy, so a training loop can
   pass its own model's state dict. Neither the factory nor `make` changes
   the caller's model: not its mode, its weights or its device.
@@ -147,15 +162,23 @@ def super_resolution_inference_factory(
   decodes all m³ offsets as one batch instead of a loop of m³ decodes:
   the small per-pass convolutions batch up, and memory grows with m³·B.
   Convolution numerics may depend on the batch shape, so the two ways
-  agree within float32 rounding, not bit for bit. Packed execution is
-  not ported yet: the fine decoder runs.
+  agree within float32 rounding, not bit for bit.
+
+  packed_execution (default on, as in the JAX package) decodes through a
+  packed twin where the configuration allows (last_upscale_factor 2, an
+  even grid at the packing point), else the fine one. On the H100 in
+  float32 the packed decoder serves h7 and y1 10–25 % faster: its wide
+  convolutions take cuDNN's fast forward kernels where the fine one runs
+  its transposed convolutions on the dgrad engine (chip_smoke.py phase 12,
+  PERF.md). The model's own packed_decoder does not carry over, so a
+  packed training model is evaluated fine unless this asks. The packed
+  logits agree with the fine ones within the convolutions' rounding (the
+  JAX package's envelope is 2e-3 · max|logit|).
   """
   device = checked_device(device)
   if batch_offsets is None:
     batch_offsets = max(resolution) <= 32
-  twin = _MultiOffset(CoreNet(
-      model.config, compute_dtype=model.compute_dtype, device="meta"),
-                      batch_offsets).eval()
+  twin = _MultiOffset(_twin(model, packed_execution), batch_offsets).eval()
   # Buffers outside the state dict (constants the modules derive from the
   # configuration) come from the caller's model.
   persistent = set(model.state_dict())
@@ -181,9 +204,11 @@ def super_resolution_from_model(model: CoreNet,
                                 weights: Mapping[str, torch.Tensor],
                                 resolution: Tuple[int, int, int],
                                 batch_offsets: Optional[bool] = None,
+                                packed_execution: bool = True,
                                 device="cuda") -> SuperResolutionInference:
   """One-shot convenience wrapper over the factory: `model`'s architecture
   with `weights` (a CoreNet state dict), on `device`, in eval mode. The
   caller's model is left as it is."""
   return super_resolution_inference_factory(
-      model, resolution, batch_offsets=batch_offsets, device=device)(weights)
+      model, resolution, batch_offsets=batch_offsets,
+      packed_execution=packed_execution, device=device)(weights)

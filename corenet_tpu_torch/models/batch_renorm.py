@@ -29,6 +29,13 @@ JAX package's shifted one-pass statistics, E[(x − c)²] − E[x − c]² with
 c the running mean (no gradient), clamped at 0: the shift keeps the
 subtraction free of cancellation when the variance is far below the
 squared mean. Float32 keeps the two-pass form.
+
+Packed (space-to-depth) activations, `phase_packing` P = 8
+(models/packing.py), have P·C channels, phase-major. Statistics are reduced
+per packed channel, folded to the fine channels (the phase mean: phases
+hold equal counts, so it is the joint mean), and the per-channel vectors
+are tiled back; parameters and running statistics stay per fine channel,
+so a packed layer has the fine layer's state.
 """
 
 from __future__ import annotations
@@ -59,9 +66,12 @@ class BatchRenorm(nn.Module):
   what every CoreNet layer uses."""
 
   def __init__(self, num_channels: int, eps: float = 1e-3,
+               phase_packing: int = 1,
                device: Optional[torch.device] = None):
     super().__init__()
     self.eps = eps
+    self.num_channels = num_channels
+    self.phase_packing = phase_packing
     self.scale = nn.Parameter(torch.ones(num_channels, device=device))
     self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
     self.register_buffer("mean", torch.zeros(num_channels, device=device))
@@ -79,11 +89,21 @@ class BatchRenorm(nn.Module):
     self.var.fill_(1.0)
     self.steps.zero_()
 
+  def _fold(self, v: torch.Tensor) -> torch.Tensor:
+    """Per packed channel [P·C] → per fine channel [C]."""
+    p = self.phase_packing
+    return v if p == 1 else v.view(p, -1).mean(0)
+
+  def _tile(self, v: torch.Tensor) -> torch.Tensor:
+    """Per fine channel [C] → per packed channel [P·C]."""
+    p = self.phase_packing
+    return v if p == 1 else v.repeat(p)
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     shape = (1, -1) + (1,) * (x.dim() - 2)
 
-    def tile(v):  # a per-channel vector, broadcast in x's dtype
-      return v.to(x.dtype).view(shape)
+    def tile(v):  # a per-channel vector, tiled, then cast to x's dtype
+      return self._tile(v).to(x.dtype).view(shape)
 
     if self.training:
       scale_eff, shift_eff = self._train_statistics(x)
@@ -94,7 +114,7 @@ class BatchRenorm(nn.Module):
     return y * tile(self.scale) + tile(self.bias)
 
   def _train_statistics(self, x: torch.Tensor):
-    """(r/σ_B, d − μ_B·r/σ_B) per channel in float32, then the
+    """(r/σ_B, d − μ_B·r/σ_B) per fine channel in float32, then the
     running-statistics update."""
     if x.dtype not in (torch.float32, torch.bfloat16):
       raise NotImplementedError(
@@ -106,16 +126,19 @@ class BatchRenorm(nn.Module):
 
     shape = (1, -1) + (1,) * (x.dim() - 2)
     dims = (0,) + tuple(range(2, x.dim()))
+    fold = self._fold
     if x.dtype == torch.bfloat16:
       shift = self.mean  # no gradient: a buffer
-      xf = x.float() - shift.view(shape)
-      m_shift = xf.mean(dim=dims)
+      xf = x.float() - self._tile(shift).view(shape)
+      m_shift = fold(xf.mean(dim=dims))
       b_mean = m_shift + shift
       b_var = torch.clamp(
-          torch.square(xf).mean(dim=dims) - torch.square(m_shift), min=0.0)
+          fold(torch.square(xf).mean(dim=dims)) - torch.square(m_shift),
+          min=0.0)
     else:
-      b_mean = x.mean(dim=dims)
-      b_var = torch.square(x - b_mean.view(shape)).mean(dim=dims)
+      b_mean = fold(x.mean(dim=dims))
+      b_var = fold(torch.square(x - self._tile(b_mean).view(shape)).mean(
+          dim=dims))
     b_std = torch.sqrt(b_var + self.eps)
 
     running_std = torch.sqrt(self.var + self.eps)
@@ -126,7 +149,7 @@ class BatchRenorm(nn.Module):
     shift_eff = d - b_mean * r / b_std
 
     with torch.no_grad():
-      c = x.shape[1]
+      c = self.num_channels
       unbiased_var = b_var * c / (c - 1)
       self.var += _MOMENTUM * (unbiased_var - self.var)
       self.mean += _MOMENTUM * (b_mean - self.mean)

@@ -2,8 +2,7 @@
 
 Counterpart of corenet_tpu/models/corenet.py. Inputs are channel-last:
 uint8 image [B, H, W, 3], voxel → screen matrix [B, 4, 4], grid sampling
-offsets [B, 3]. Output: float32 logits [B, D, H, W, C]. The JAX package's
-packed decoder is not ported yet.
+offsets [B, 3]. Output: float32 logits [B, D, H, W, C].
 """
 
 from __future__ import annotations
@@ -50,8 +49,13 @@ class CoreNet(nn.Module):
 
   phase_output (last_upscale_factor 2): the logits come phase-major,
   [B, D/2, H/2, W/2, 8·C] (models/decoder.py), for the phase-loss
-  training step. A model with and one without it load the same
-  state_dict.
+  training step; with packed_decoder [B, D/4, H/4, W/4, 64·C]. A model
+  with and one without it load the same state_dict.
+
+  packed_decoder: the decoder's towers from pack_from_stage (2–6, default
+  5) run on space-to-depth packed activations (models/packing.py); the
+  same parameters and function. Like phase_output, it changes execution,
+  not the state_dict.
 
   compute_dtype: None = float32 everywhere; torch.bfloat16 = convolutions
   and matmuls in bf16 with float32 parameters, statistics, parameter
@@ -61,6 +65,7 @@ class CoreNet(nn.Module):
 
   def __init__(self, config: CoreNetConfig, phase_output: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
+               packed_decoder: bool = False, pack_from_stage: int = 5,
                device: Optional[torch.device] = None):
     super().__init__()
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
@@ -71,6 +76,8 @@ class CoreNet(nn.Module):
     self.config = config
     self.phase_output = phase_output
     self.compute_dtype = compute_dtype
+    self.packed_decoder = packed_decoder
+    self.pack_from_stage = pack_from_stage
     dc = config.decoder
     self.encoder = ResNet50FeatureExtractor(compute_dtype=compute_dtype,
                                             device=device)
@@ -81,6 +88,8 @@ class CoreNet(nn.Module):
         latent_channels=dc.latent_channels,
         skip_fraction=dc.skip_fraction,
         phase_output=phase_output,
+        packed=packed_decoder,
+        pack_from_stage=pack_from_stage,
         compute_dtype=compute_dtype,
         device=device)
 

@@ -1,7 +1,7 @@
 """Conv/linear primitives with torch-style shape semantics.
 
-Counterpart of corenet_tpu/models/layers.py, fine (unpacked) execution
-only. These modules work in PyTorch's own layout, (N, C, spatial...), and
+Counterpart of corenet_tpu/models/layers.py. These modules work in
+PyTorch's own layout, (N, C, spatial...), and
 keep PyTorch's weight layouts: a convolution's weight is
 (out, in, spatial...), a transposed convolution's (in, out, spatial...)
 with no flip, a linear layer's (out, in). models/convert.py maps the JAX
@@ -13,6 +13,14 @@ float32, so autograd's cast gives float32 parameter gradients. The bias
 goes in as the JAX layers add it: `Conv` adds the float32 bias to its
 bf16 output in float32 and rounds once, `ConvTranspose` and `Linear` add
 it cast to the compute dtype.
+
+`packed_io` (3D only) runs a layer on space-to-depth packed activations,
+(N, 8·C, D/2, H/2, W/2) in and out (models/packing.py), with the fine
+layer's parameters; the bias is tiled over the phases and added in the
+compute dtype, as the JAX layers add it there. A fine transposed
+convolution runs as torch's `conv_transpose`, the JAX package's
+`method="dilated"`; its per-phase lowerings are not ported (ROADMAP.md
+§3).
 
 `reset_parameters(generator)` reproduces the JAX package's initializers:
 torch's default U(±1/√fan_in) for kernels and biases, kaiming-normal
@@ -31,6 +39,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from corenet_tpu_torch.models import packing
 
 IntOrTuple = Union[int, Tuple[int, ...]]
 
@@ -66,12 +76,16 @@ def _kaiming_normal_(param: torch.Tensor, fan_in: int,
 
 
 class Conv(nn.Module):
-  """N-d convolution (N = 2 or 3) with symmetric integer padding."""
+  """N-d convolution (N = 2 or 3) with symmetric integer padding.
+
+  packed_io (3D, stride 1, padding k // 2): packed input and output
+  (models/packing.py::packed_conv)."""
 
   def __init__(self, in_features: int, features: int,
                kernel_size: IntOrTuple, ndim: int, stride: IntOrTuple = 1,
                padding: IntOrTuple = 0,
                kernel_init_mode: str = "torch_default",
+               packed_io: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
@@ -83,6 +97,11 @@ class Conv(nn.Module):
     self.ndim = ndim
     self.stride = _tuple(stride, ndim)
     self.padding = _tuple(padding, ndim)
+    if packed_io and (ndim != 3 or set(self.stride) != {1} or len(set(k)) != 1
+                      or self.padding != (k[0] // 2,) * 3):
+      raise ValueError("packed_io needs a 3D convolution of stride 1 with "
+                       "a cubic kernel and padding k // 2")
+    self.packed_io = packed_io
     self.kernel_init_mode = kernel_init_mode
     self.compute_dtype = compute_dtype
     self.fan_in = in_features * math.prod(k)
@@ -98,6 +117,8 @@ class Conv(nn.Module):
     _uniform_(self.bias, 1.0 / math.sqrt(self.fan_in), generator)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    if self.packed_io:
+      return self._packed(x)
     conv = F.conv2d if self.ndim == 2 else F.conv3d
     if self.compute_dtype is None:
       return conv(x, self.weight, self.bias, self.stride, self.padding)
@@ -105,6 +126,16 @@ class Conv(nn.Module):
              None, self.stride, self.padding)
     bias = self.bias.view((-1,) + (1,) * self.ndim)
     return (y.float() + bias).to(y.dtype)
+
+  def _packed(self, x: torch.Tensor) -> torch.Tensor:
+    # The float32 weight is expanded, then cast with the input (packing.py);
+    # the tiled bias is cast after tiling, as the JAX layer casts it.
+    bias = self.bias.repeat(8)
+    if self.compute_dtype is None:
+      return packing.packed_conv(x, self.weight, self.padding[0], bias)
+    y = packing.packed_conv(x.to(self.compute_dtype), self.weight,
+                            self.padding[0])
+    return y + bias.to(y.dtype).view(-1, 1, 1, 1)
 
 
 class ConvTranspose(nn.Module):
@@ -114,24 +145,35 @@ class ConvTranspose(nn.Module):
   phase_output (3D, stride 2): return the output channel-last in
   phase-major layout, [B, D/2, H/2, W/2, 8·F] with channel order
   (pz, py, px, f), where fine index = 2·coarse + phase per axis, instead
-  of (B, F, D, H, W). The same parameters; the JAX package's layout for
-  consumers that do not depend on voxel order (the training loss)."""
+  of (B, F, D, H, W). With packed_io (packed in and out, a cubic kernel,
+  stride 2) it is the packed plan's raw output, [B, D/4, H/4, W/4, 64·F]
+  in channel order (rm0, rm1, rm2, pz, py, px, f), fine index
+  4·coarse + 2·rm + phase per axis. The same parameters either way; the
+  JAX package's layouts for consumers that do not depend on voxel order
+  (the training loss)."""
 
   def __init__(self, in_features: int, features: int,
                kernel_size: IntOrTuple, ndim: int, stride: IntOrTuple = 1,
                padding: IntOrTuple = 0, output_padding: IntOrTuple = 0,
-               phase_output: bool = False,
+               phase_output: bool = False, packed_io: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     if ndim not in (2, 3):
       raise ValueError(f"ndim must be 2 or 3, got {ndim}")
-    if phase_output and (ndim != 3 or _tuple(stride, ndim) != (2, 2, 2)):
-      raise ValueError("phase_output needs a 3D transposed convolution of "
-                       "stride 2")
+    if (phase_output or packed_io) and (
+        ndim != 3 or _tuple(stride, ndim) != (2, 2, 2)):
+      raise ValueError("phase_output and packed_io need a 3D transposed "
+                       "convolution of stride 2")
     k = _tuple(kernel_size, ndim)
+    if packed_io and not (len(set(k)) == 1
+                          and len(set(_tuple(padding, ndim))) == 1
+                          and len(set(_tuple(output_padding, ndim))) == 1):
+      raise ValueError("packed_io needs the same kernel, padding and output "
+                       "padding on every axis")
     self.ndim = ndim
     self.phase_output = phase_output
+    self.packed_io = packed_io
     self.compute_dtype = compute_dtype
     self.stride = _tuple(stride, ndim)
     self.padding = _tuple(padding, ndim)
@@ -148,13 +190,25 @@ class ConvTranspose(nn.Module):
     _uniform_(self.bias, bound, generator)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    dtype = self.compute_dtype
+    xc = x if dtype is None else x.to(dtype)
+    if self.packed_io:
+      # The float32 weight is expanded, then cast with the input. The bias
+      # goes in the convolution (64 phases) in float32 and is added in the
+      # compute dtype in bf16, as the JAX layers add it.
+      y = packing.packed_conv_transpose(
+          xc, self.weight, self.padding[0], self.output_padding[0],
+          phase_output=self.phase_output,
+          bias=self.bias.repeat(64) if dtype is None else None)
+      if dtype is not None:
+        reps = 64 if self.phase_output else 8
+        y = y + self.bias.repeat(reps).to(dtype).view(-1, 1, 1, 1)
+      return y.permute(0, 2, 3, 4, 1) if self.phase_output else y
+    weight = self.weight if dtype is None else self.weight.to(dtype)
     conv_t = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
-    if self.compute_dtype is None:
-      y = conv_t(x, self.weight, self.bias, self.stride, self.padding,
-                 self.output_padding)
-    else:
-      y = conv_t(x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
-                 None, self.stride, self.padding, self.output_padding)
+    y = conv_t(xc, weight, self.bias if dtype is None else None,
+               self.stride, self.padding, self.output_padding)
+    if dtype is not None:
       y = y + self.bias.to(y.dtype).view((-1,) + (1,) * self.ndim)
     if not self.phase_output:
       return y

@@ -6,7 +6,7 @@ difference diff = logit1 − logit0 and the labels of each scene,
 
   inter[b] = Σ_{gt=1} σ(diff)      union[b] = Σ_{gt=1} 1 + Σ_{gt≠1} σ(diff)
 
-in f32. The kernel is `csrc/fgbg_sums.cu`; its note says what bounds it
+summed in f64, returned in f32. The kernel is `csrc/fgbg_sums.cu`; its note says what bounds it
 and why its sums are the same from run to run. The gradient is elementwise,
 d diff = σ'(diff)·(gt = 1 ? d_inter : d_union), and, as in the JAX
 package, plain tensor code rather than a kernel.
@@ -42,13 +42,16 @@ _THREADS = 256
 
 def fgbg_sums_reference(diff: torch.Tensor, gt: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """The plain version: sigmoid, where, and a sum per scene, in f32."""
+  """The plain version: sigmoid in f32, where, and a sum per scene in f64,
+  rounded to f32 once, as the kernel sums its partials. (An f32 sum parts
+  from the kernel's in the last bits; in a bf16 training step that moves
+  the rounding of the logits' gradient, which the backward carries on.)"""
   b = diff.shape[0]
   pred = torch.sigmoid(diff.float()).reshape(b, -1)
   fg = (gt == 1).reshape(b, -1)
-  inter = torch.where(fg, pred, 0.0).sum(dim=1)
-  union = torch.where(fg, 1.0, pred).sum(dim=1)
-  return inter, union
+  inter = torch.where(fg, pred, 0.0).sum(dim=1, dtype=torch.float64)
+  union = torch.where(fg, 1.0, pred).sum(dim=1, dtype=torch.float64)
+  return inter.float(), union.float()
 
 
 def _check(diff: torch.Tensor, gt: torch.Tensor):

@@ -28,8 +28,8 @@ backward_launch_count = 0
 _SIGNATURES = {
     "skip_gather_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p], ctypes.c_int),
-    "skip_gather_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+    "skip_gather_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p], ctypes.c_int),
     "skip_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -49,9 +49,10 @@ def skip_gather_reference(fmap_padded: torch.Tensor, px: torch.Tensor,
 def skip_gather_backward_reference(dout: torch.Tensor, px: torch.Tensor,
                                    py: torch.Tensor, h2: int, w2: int
                                    ) -> torch.Tensor:
-  """The plain version of the gradient: `index_add_` of dout over the flat
-  b·H2·W2 + py·W2 + px index into a zeroed f32 buffer, cast to dout's
-  dtype."""
+  """The plain version of the gradient: `index_add_` of dout ([B, N, C],
+  or [B, P, N/P, C] for P phases) over the flat b·H2·W2 + py·W2 + px
+  index into a zeroed f32 buffer, cast to dout's dtype."""
+  dout = dout.reshape(dout.shape[0], -1, dout.shape[-1])
   b, n, c = dout.shape
   base = torch.arange(b, device=dout.device)[:, None] * (h2 * w2)
   flat = (base + py.long() * w2 + px.long()).reshape(-1)
@@ -150,18 +151,22 @@ def z_chunk(depth: int) -> int:
 def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
                          py: torch.Tensor, h2: int, w2: int,
                          grid_resolution: GridResolution) -> torch.Tensor:
-  """d fmap_padded [B, H2, W2, C] in dout's dtype from dout [B, N, C] of
-  any strides: the CUDA kernel on the current stream for a CUDA input, the
-  plain version for a CPU one. `grid_resolution` (D, H, W) says that voxel
-  n is (z·H + y)·W + x, which lets the kernel sum along depth columns;
-  (1, 1, N) for voxels in no such order."""
-  if dout.dim() != 3 or dout.dtype not in _DTYPES:
-    raise ValueError(f"dout must be float32 or bfloat16 [B, N, C], got "
-                     f"{dout.dtype} {tuple(dout.shape)}")
-  b, n, c = dout.shape
+  """d fmap_padded [B, H2, W2, C] in dout's dtype from dout [B, N, C], or
+  [B, P, N/P, C] for voxels in P phases, of any strides: the CUDA kernel on
+  the current stream for a CUDA input, the plain version for a CPU one.
+  `grid_resolution` (D, H, W) says that voxel n of a phase is
+  (z·H + y)·W + x, which lets the kernel sum along depth columns; (1, 1, N)
+  for voxels in no such order."""
+  if dout.dim() == 3:
+    dout = dout[:, None]
+  if dout.dim() != 4 or dout.dtype not in _DTYPES:
+    raise ValueError(f"dout must be float32 or bfloat16 [B, N, C] or "
+                     f"[B, P, N/P, C], got {dout.dtype} {tuple(dout.shape)}")
+  b, phases, n, c = dout.shape
   _check_indices(b, dout.device, px, py)
-  if px.shape[1] != n:
-    raise ValueError(f"dout has {n} voxels, the indices {px.shape[1]}")
+  if px.shape[1] != phases * n:
+    raise ValueError(f"dout has {phases} x {n} voxels, the indices "
+                     f"{px.shape[1]}")
   depth, cols = columns(n, grid_resolution)
   device = dout.device
   if device.type == "cpu":
@@ -177,9 +182,9 @@ def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.skip_gather_bwd(dout.data_ptr(), px.data_ptr(), py.data_ptr(),
-                              acc.data_ptr(), dfmap.data_ptr(), b, n, h2, w2,
-                              c, *dout.stride(), depth, z_chunk(depth),
-                              dout.element_size(), stream)
+                              acc.data_ptr(), dfmap.data_ptr(), b, phases, n,
+                              h2, w2, c, *dout.stride(), depth,
+                              z_chunk(depth), dout.element_size(), stream)
   _raise_on(lib, err, "backward")
   global backward_launch_count
   backward_launch_count += 1
@@ -191,11 +196,16 @@ class SkipGather(torch.autograd.Function):
   module's `skip_gather_forward` / `skip_gather_backward` at call time."""
 
   @staticmethod
-  def forward(ctx, fmap_padded, px, py, grid_resolution):
+  def forward(ctx, fmap_padded, px, py, grid_resolution, phases):
     ctx.save_for_backward(px, py)
     ctx.map_hw = tuple(fmap_padded.shape[1:3])
     ctx.grid_resolution = grid_resolution
-    return skip_gather_forward(fmap_padded, px, py)
+    out = skip_gather_forward(fmap_padded, px, py)
+    if phases == 1:
+      return out
+    # Split, never merged again: the gradient reaches the backward in the
+    # layout of the consumer's own gradient, whatever its strides.
+    return out.view(out.shape[0], phases, -1, out.shape[-1])
 
   @staticmethod
   def backward(ctx, dout):
@@ -204,23 +214,29 @@ class SkipGather(torch.autograd.Function):
     px, py = ctx.saved_tensors
     return (skip_gather_backward(dout, px, py, *ctx.map_hw,
                                  grid_resolution=ctx.grid_resolution),
-            None, None, None)
+            None, None, None, None)
 
 
 def skip_gather(fmap_padded: torch.Tensor,  # [B, H2, W2, C] f32 or bf16
                 px: torch.Tensor,           # [B, N] int32, in [0, W2)
                 py: torch.Tensor,           # [B, N] int32, in [0, H2)
                 grid_resolution: GridResolution,
+                phases: int = 1,
                 ) -> torch.Tensor:
   """Gathers fmap_padded[b, py, px, :] for each index pair → [B, N, C] in
   fmap_padded's dtype; differentiable in fmap_padded. `grid_resolution`
   (D, H, W), where the N voxels are a grid in (z, y, x) order, lets the
   backward kernel sum along depth columns; (1, 1, N) for voxels in no such
-  order.
+  order. With `phases` P > 1 the voxels are P such grids, one after
+  another (the packed decoder's skips), and the result is
+  [B, P, N/P, C].
 
   A CUDA input launches the kernels (forward, and backward when a
   gradient flows) on the current stream, or raises: it never takes the
   plain versions. A CPU input takes the plain versions."""
   _check(fmap_padded, px, py)
-  columns(px.shape[1], grid_resolution)
-  return SkipGather.apply(fmap_padded, px, py, grid_resolution)
+  if phases < 1 or px.shape[1] % phases:
+    raise ValueError(f"{px.shape[1]} voxels do not split into {phases} "
+                     "phases")
+  columns(px.shape[1] // phases, grid_resolution)
+  return SkipGather.apply(fmap_padded, px, py, grid_resolution, phases)

@@ -13,12 +13,12 @@ persistent checkpoints, the loss to `<output_path>/tb/train/` and the
 fill audit on their StepEvent schedules. `RecurrentEvals` runs the
 configuration's evals at their schedules through one cached
 `EvalPipeline` each, on an eval-mode twin over the training model's own
-tensors, in the training dtype.
+tensors, in the training dtype and, unless it is asked for the packed
+decoder, with the fine one.
 
 Not ported here, each refused with the slice that brings it: host ground
-truth (`gt_mode="host"`, slice 8b), packed decoder execution (slice 6),
-meshes and more than one process (slice 7). `decoder_execution="auto"`
-runs the fine decoder.
+truth (`gt_mode="host"`, slice 8b), meshes and more than one process
+(slice 7).
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from corenet_tpu_torch.eval.super_resolution import (
 from corenet_tpu_torch.models import batch_renorm
 from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
+from corenet_tpu_torch.models.decoder import (
+    packed_eligible, require_packed_eligible)
 from corenet_tpu_torch.train import checkpoint as cpt_lib
 from corenet_tpu_torch.train import gt as gt_lib
 from corenet_tpu_torch.train import state as state_lib
@@ -57,9 +59,6 @@ log = logging.getLogger(__name__)
 FILL_ROUNDS_STATIC = 6
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
-AUTO_DECODER_NOTE = ("decoder_execution='auto': packed (space-to-depth) "
-                     "execution is slice 6 of the port; running the fine "
-                     "decoder")
 
 
 def model_config_from_train_config(config: cfg.TrainConfig,
@@ -96,8 +95,12 @@ class TrainPipeline:
     gt_algorithm: 'raster' (rasterize + fill) or 'parity'.
     compute_dtype: 'bfloat16' (the default; float32 parameters,
       statistics, logits and gradients) or 'float32'.
-    decoder_execution: 'auto' or 'fine' run the fine decoder; 'packed' is
-      slice 6.
+    decoder_execution: 'fine', 'packed' (the space-to-depth decoder,
+      models/packing.py: the same parameters and checkpoints; needs
+      last_upscale_factor 2 and an even seed grid) or 'auto' (packed
+      where eligible, else fine, as the JAX package chooses; on the H100
+      the packed h7 step takes 0.58× the fine step's device time in
+      float32 and 0.69–0.73× in bf16: chip_smoke.py phase 12, PERF.md).
     phase_loss: the loss on phase-major logits; None = on for FG_BG with
       last_upscale_factor 2.
     renorm_ramp_start: the step at which BatchRenorm's r/d clips open
@@ -119,11 +122,6 @@ class TrainPipeline:
       raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     if decoder_execution not in ("auto", "fine", "packed"):
       raise ValueError(f"unknown decoder_execution {decoder_execution!r}")
-    if decoder_execution == "packed":
-      raise NotImplementedError("decoder_execution='packed' (space-to-depth "
-                                "execution) is slice 6 of the port")
-    if decoder_execution == "auto":
-      log.info(AUTO_DECODER_NOTE)
     self.device = checked_device(device)
     self.config = config
     self.output_path = output_path
@@ -141,14 +139,24 @@ class TrainPipeline:
     self.classes = self.dataset_manager.classes
     self.model_config = model_config_from_train_config(
         config, len(self.classes))
-    phase_ok = (self.task_type == "FG_BG"
-                and self.model_config.decoder.last_upscale_factor == 2)
+    dec = self.model_config.decoder
+    luf = dec.last_upscale_factor
+    # The JAX pipeline's rule: an even seed grid, eligibility at stage 2.
+    packed = (decoder_execution == "packed"
+              or (decoder_execution == "auto"
+                  and packed_eligible(dec.resolution, luf, 2)))
+    if packed:
+      require_packed_eligible(dec.resolution, luf, 2)
+    phase_ok = self.task_type == "FG_BG" and luf == 2
     if phase_loss is None:
       phase_loss = phase_ok
     elif phase_loss and not phase_ok:
       raise ValueError("phase_loss requires FG_BG and last_upscale_factor=2")
+    log.info("decoder execution: %s (decoder_execution=%r)",
+             "packed" if packed else "fine", decoder_execution)
     self.model = CoreNet(self.model_config, phase_output=phase_loss,
-                         compute_dtype=COMPUTE_DTYPES[compute_dtype])
+                         compute_dtype=COMPUTE_DTYPES[compute_dtype],
+                         packed_decoder=packed)
 
     irm = vc.voxelization_image_resolution_multiplier
     # A static fill count only when the configuration asks for one (one
@@ -411,11 +419,17 @@ class RecurrentEvals:
   """Scheduled evals during training. One EvalPipeline per eval, cached
   across runs, with its summary writer at `<output_path>/tb/<name>/`; the
   inference factory is made once and applied to the training model's
-  current tensors at each run."""
+  current tensors at each run. The evals decode with the fine decoder
+  unless `packed_execution` asks for the packed one, whichever the
+  training model runs: the JAX package's recurrent evals take its
+  serving default (packed), whose logits move within the packed
+  envelope."""
 
-  def __init__(self, evals: List[cfg.RecurrentEvalConfig], output_path: str):
+  def __init__(self, evals: List[cfg.RecurrentEvalConfig], output_path: str,
+               packed_execution: bool = False):
     self.configs = evals
     self.output_path = output_path
+    self.packed_execution = packed_execution
     self.events = [
         misc.StepEvent(e.start_step, e.interval) if e.start_step >= 0 else None
         for e in evals
@@ -439,7 +453,7 @@ class RecurrentEvals:
     if self._inference_factory is None:
       self._inference_factory = super_resolution_inference_factory(
           pipeline.model, pipeline.model_config.decoder.resolution,
-          device=pipeline.device)
+          packed_execution=self.packed_execution, device=pipeline.device)
     # The state dict's tensors are the model's own (no copy): the eval
     # reads the weights as they are now, and never writes them.
     inference = self._inference_factory(pipeline.state.model.state_dict())

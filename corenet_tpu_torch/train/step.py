@@ -5,7 +5,7 @@ loss per task, the training step, and the eval forward. The step takes
 its ground truth from the batch (`grid`, the JAX step's host-GT branch)
 or voxelizes the batch's triangles on its device (train/gt.py), and with
 a `phase_output` model trains on phase-major logits and labels (the
-phase loss).
+phase loss): factor 8 for the fine decoder, 64 for the packed one.
 """
 
 from __future__ import annotations
@@ -85,7 +85,9 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   if gt_algorithm not in ("raster", "parity"):
     raise ValueError(f"unknown GT algorithm {gt_algorithm!r}")
   phase_loss = model.phase_output
-  phase_s = 2  # the fine decoder's phased last stage: factor 2³ = 8
+  # Phase factor per axis: the packed decoder's deep-phase output is
+  # factor 4³ = 64, the fine decoder's phased last stage 2³ = 8.
+  phase_s = 4 if model.packed_decoder else 2
 
   def ground_truth(batch: Batch):
     """(grid or None, phase-major labels or None, v2x)."""
@@ -122,6 +124,10 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
       # paired with labels in the same order.
       b, dq, hq = logits.shape[:3]
       nc = model.config.decoder.num_output_channels
+      factor = logits.shape[-1] // nc
+      if factor != phase_s ** 3:
+        raise ValueError(f"phase-major logits of factor {factor}, expected "
+                         f"{phase_s ** 3}")
       if phased is None:
         phased = phase_permute(grid.to(torch.uint8), phase_s)
       loss = loss_fn(phased, logits.reshape(b, dq, hq, -1, nc))

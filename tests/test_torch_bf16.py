@@ -101,6 +101,28 @@ LAYERS = {
             features=8, kernel_size=2, ndim=3, stride=2, compute_dtype=dt),
         lambda: layers.ConvTranspose(6, 8, 2, 3, stride=2,
                                      compute_dtype=BF16), (2, 1, 1, 1, 6)),
+    "conv3d packed 5": (
+        lambda dt: jax_layers.Conv(features=6, kernel_size=5, ndim=3,
+                                   padding=2, packed_io=True,
+                                   compute_dtype=dt),
+        lambda: layers.Conv(5, 6, 5, 3, padding=2, packed_io=True,
+                            compute_dtype=BF16), (2, 3, 3, 3, 40)),
+    "conv_transpose3d packed 7 s2": (
+        lambda dt: jax_layers.ConvTranspose(
+            features=4, kernel_size=7, ndim=3, stride=2, padding=3,
+            output_padding=1, packed_io=True, compute_dtype=dt),
+        lambda: layers.ConvTranspose(6, 4, 7, 3, stride=2, padding=3,
+                                     output_padding=1, packed_io=True,
+                                     compute_dtype=BF16), (2, 2, 2, 2, 48)),
+    "conv_transpose3d packed phase-major": (
+        lambda dt: jax_layers.ConvTranspose(
+            features=2, kernel_size=7, ndim=3, stride=2, padding=3,
+            output_padding=1, packed_io=True, phase_output=True,
+            compute_dtype=dt),
+        lambda: layers.ConvTranspose(6, 2, 7, 3, stride=2, padding=3,
+                                     output_padding=1, packed_io=True,
+                                     phase_output=True, compute_dtype=BF16),
+        (2, 2, 2, 2, 48)),
     "linear": (
         lambda dt: jax_layers.Linear(features=8, compute_dtype=dt),
         lambda: layers.Linear(16, 8, compute_dtype=BF16), (3, 16)),
@@ -315,10 +337,12 @@ def test_the_inference_twin_keeps_the_models_dtype():
                         (BATCH, 4, 4)).copy()
   args = [torch.from_numpy(a) for a in (image, camera, v2x, offsets)]
   pmf = super_resolution_from_model(model, model.state_dict(), (32,) * 3,
+                                    packed_execution=False,
                                     device="cpu")(*args, (32,) * 3)
   f32 = CoreNet(model.config)
   f32.load_state_dict(weights)
   pmf32 = super_resolution_from_model(f32, weights, (32,) * 3,
+                                      packed_execution=False,
                                       device="cpu")(*args, (32,) * 3)
   twin = CoreNet(model.config, compute_dtype=BF16)
   twin.load_state_dict(weights)

@@ -398,6 +398,100 @@ def test_phase_loss_train_step_on_card_matches_cpu(device, monkeypatch):
   assert losses[1] == pytest.approx(losses[0], rel=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h2,w2,c,n", H7_SKIPS)
+def test_skip_gather_backward_packed_order_matches_plain_version(
+    device, h2, w2, c, n, dtype):
+  """The backward in the packed decoder's voxel order (8 phase grids of
+  half the resolution, phase-outer) at the four h7 skip shapes, dout in
+  the packed step's layout: the skip's channel slice of a per-phase
+  [B, 8, 16 + C, D/2, H/2, W/2] gradient, read in place."""
+  grid = GRIDS[n]
+  half = tuple(v // 2 for v in grid)
+  m = n // 8
+  fine_px, fine_py = _backward_indices("h7_path", h2, w2, n, device)
+  # The same camera's indices in packed order.
+  near, far = 0.5, 3.0
+  a, b = (far + near) / (far - near), -2 * far * near / (far - near)
+  camera = torch.tensor([[[f, 0, 0, -0.5 * f], [0, f, 0, -0.5 * f],
+                          [0, 0, a, a + b], [0, 0, 1, 1.0]]
+                         for f in (1.8, 1.9, 2.0, 2.1)], device=device)
+  v2x = torch.diag(torch.tensor([128.0] * 3 + [1.0])).expand(4, 4, 4)
+  div = 128 // grid[0]
+  matrix = compute_v2s(camera, v2x.to(device)) * torch.tensor(
+      [div, div, div, 1.0], device=device)
+  px, py = skip.voxel_pixel_indices(
+      matrix, torch.full((4, 3), 0.5, device=device), grid, h2 - 2, w2 - 2,
+      packed=True)
+  # Each voxel reads the pixel it reads in fine order.
+  to_fine = lambda t: t.view(4, 2, 2, 2, *half).permute(
+      0, 4, 1, 5, 2, 6, 3).reshape(4, n)
+  assert torch.equal(to_fine(px), fine_px)
+  assert torch.equal(to_fine(py), fine_py)
+  dout = torch.randn((4, 8, m, c),
+                     generator=torch.Generator().manual_seed(n))
+  dout = dout.to(device, dtype)
+  big = torch.randn((4, 8, 16 + c) + half, device=device).to(dtype)
+  big[:, :, 16:] = dout.view((4, 8) + half + (c,)).permute(0, 1, 5, 2, 3, 4)
+  step = big[:, :, 16:].permute(0, 1, 3, 4, 5, 2).reshape(4, 8, m, c)
+  assert step.stride() == (8 * (16 + c) * m, (16 + c) * m, 1, m)
+  before = op.backward_launch_count
+  got = op.skip_gather_backward(step, px, py, h2, w2, grid_resolution=half)
+  torch.cuda.synchronize()
+  assert op.backward_launch_count == before + 1
+  assert got.dtype == dtype and got.shape == (4, h2, w2, c)
+  ref64, s = _scatter_bounds(dout, px, py, h2, w2)
+  plain = op.skip_gather_backward_reference(dout, px, py, h2, w2)
+  for out in (got, plain):
+    err = (out.double() - ref64).abs()
+    bound = 1e-5 * s + 1e-30
+    if dtype == torch.bfloat16:
+      bound = bound + _bf16_ulp(ref64)
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_packed_phase_loss_step_on_card_matches_cpu(device, monkeypatch):
+  """The packed decoder's phase-loss step at 64³ on GT voxelized in the
+  step: K1 4 + 4 (one backward in packed voxel order), K2 1, K3 1, K4 1
+  at s = 4, and the loss of the CPU's step."""
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+  rng = np.random.default_rng(0)
+  batch = _cube_batch(64)
+  batch["image"] = torch.from_numpy(
+      rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8))
+  batch["camera"] = torch.diag(torch.tensor([1.8, 1.8, 1.8, 1.0])).repeat(
+      2, 1, 1)
+  batch["camera"][:, :3, 3] = -0.9
+  kwargs = dict(image_resolution_multiplier=8,
+                conservative_rasterization=False,
+                max_bbox_pixels=VOXELIZE_WINDOW_PIXELS)
+  factors, backwards = [], []
+  phased_forward = phased.phased_gt_forward
+  backward = op.skip_gather_backward
+  monkeypatch.setattr(phased, "phased_gt_forward", lambda packed, s: (
+      factors.append(s), phased_forward(packed, s))[1])
+  monkeypatch.setattr(op, "skip_gather_backward", lambda dout, *a, **k: (
+      backwards.append(dout.dim()), backward(dout, *a, **k))[1])
+  losses = []
+  for dev in ("cpu", device):
+    model = CoreNet(CoreNetConfig(DecoderConfig((64, 64, 64), 2)),
+                    phase_output=True, packed_decoder=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = create_train_state(model, device=dev)
+    step = make_train_step(state.model, state.optimizer, "FG_BG",
+                           (64, 64, 64), voxelization_kwargs=kwargs)
+    counts = (scatter.launch_count, phased.launch_count, op.launch_count,
+              op.backward_launch_count, fgbg.launch_count)
+    del factors[:], backwards[:]
+    state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
+    losses.append(float(metrics["loss"]))
+  after = (scatter.launch_count, phased.launch_count, op.launch_count,
+           op.backward_launch_count, fgbg.launch_count)
+  assert tuple(a - c for a, c in zip(after, counts)) == (1, 1, 4, 4, 1)
+  assert factors == [4] and sorted(backwards) == [3, 3, 3, 4]
+  assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+
+
 GT_KEYS = ("triangles", "tri_mesh_slot", "tri_valid", "mesh_labels",
            "grid_offset")
 
@@ -643,6 +737,7 @@ def test_bf16_inference_twin_on_card(device, monkeypatch):
           torch.diag(torch.tensor([32.0, 32, 32, 1])).repeat(2, 1, 1).to(
               device), torch.full((2, 3), 0.5, device=device))
   pmf = super_resolution_from_model(model, model.state_dict(), (32,) * 3,
+                                    packed_execution=False,
                                     device=device)(*args, (32,) * 3)
   twin = CoreNet(model.config, compute_dtype=torch.bfloat16).to(device)
   twin.load_state_dict(weights)

@@ -243,7 +243,7 @@ def test_super_resolution_matches_jax(m, batch_offsets):
   model = CoreNet(CoreNetConfig(DecoderConfig((32, 32, 32), 2)))
   infer = super_resolution_from_model(
       model, state_dict_from_jax(_variables(32)), (32, 32, 32),
-      batch_offsets=batch_offsets, device="cpu")
+      batch_offsets=batch_offsets, packed_execution=False, device="cpu")
   got = infer(*inputs).numpy()
   assert got.shape == ref.shape == (BATCH,) + (32 * m,) * 3 + (2,)
   tt.assert_allclose(got.sum(-1), 1.0, atol=1e-5)

@@ -127,8 +127,7 @@ def test_train_cli_refusals(config_path, monkeypatch):
   path, _ = config_path
   for extra, slice_name in (("--multihost", "slice 7"),
                             ("--space=2", "slice 7"),
-                            ("--gt_mode=host", "slice 8b"),
-                            ("--decoder_execution=packed", "slice 6")):
+                            ("--gt_mode=host", "slice 8b")):
     with pytest.raises(NotImplementedError, match=slice_name):
       train_cli.main([f"--config_path={path}", "--device=cpu", extra])
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

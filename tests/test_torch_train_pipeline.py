@@ -297,8 +297,7 @@ def test_refusals_name_their_slices(dataset, caplog):
       cfg.TrainPipeline, full_config_dict(root, manifest, meshes_dir))
   out = os.path.join(root, "refused")
   for kwargs, slice_name in ((dict(gt_mode="host"), "slice 8b"),
-                             (dict(mesh=object()), "slice 7"),
-                             (dict(decoder_execution="packed"), "slice 6")):
+                             (dict(mesh=object()), "slice 7")):
     with pytest.raises(NotImplementedError, match=slice_name):
       pipeline.TrainPipeline(full.train, out, device="cpu", **kwargs)
   with pytest.raises(ValueError, match="phase_loss"):
@@ -311,9 +310,16 @@ def test_refusals_name_their_slices(dataset, caplog):
     fine = pipeline.TrainPipeline(full.train, out, device="cpu",
                                   decoder_execution="fine",
                                   compute_dtype="float32", phase_loss=False)
-  notes = [r for r in caplog.records
-           if r.getMessage() == pipeline.AUTO_DECODER_NOTE]
-  assert len(notes) == 1
+  # 32³ has a seed grid of 1³, which does not pack: 'auto' trains the
+  # fine decoder there, and 'packed' is refused.
+  notes = [r.getMessage() for r in caplog.records
+           if r.getMessage().startswith("decoder execution: ")]
+  assert notes == ["decoder execution: fine (decoder_execution='auto')",
+                   "decoder execution: fine (decoder_execution='fine')"]
+  assert not auto.model.packed_decoder
+  with pytest.raises(ValueError, match="even grid at the packing point"):
+    pipeline.TrainPipeline(full.train, out, device="cpu",
+                           decoder_execution="packed")
   assert auto.model.compute_dtype == torch.bfloat16
   assert fine.model.compute_dtype is None and not fine.model.phase_output
 

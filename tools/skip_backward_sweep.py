@@ -66,8 +66,9 @@ def main() -> int:
     def launch(depth, chunk):
       stream = torch.cuda.current_stream(dev).cuda_stream
       err = lib.skip_gather_bwd(step.data_ptr(), px.data_ptr(), py.data_ptr(),
-                                acc.data_ptr(), acc.data_ptr(), b, n, h2, h2,
-                                c, *step.stride(), depth, chunk, 4, stream)
+                                acc.data_ptr(), acc.data_ptr(), b, 1, n, h2,
+                                h2, c, step.stride(0), 0, *step.stride()[1:],
+                                depth, chunk, 4, stream)
       if err != 0:
         raise RuntimeError(f"skip_gather_bwd failed: CUDA error {err}")
 
