@@ -161,7 +161,10 @@ Phases; the run fails at the first that fails:
               unpacked logits (1e-6) and a falling loss; 20 timed steps and
               a profile. K1's backward in packed voxel order at skip 5
               (the packed step's gradient layout, no copy) and K4 at s = 4
-              against their plain versions, timed. The train CLI with
+              against their plain versions, timed; the backward beside the
+              fine order on the same voxels, its runs along z and flushes
+              (ops/skip_gather.py::walk_flushes) equal to the fine
+              order's. The train CLI with
               --decoder_execution=packed (4 steps, launches, K4 at s = 4)
               and the eval CLI with --packed_inference against
               --nopacked_inference (mean IoU within 1e-3).
@@ -450,23 +453,6 @@ def bf16_ulp(torch, x):
   return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def column_runs(torch, op, px, py, h2, grid, c):
-  """From the indices: the mean run of equal pixels along z in a depth
-  column, the backward kernel's chunk along z, and its flushes (vector
-  atomics): one per run, a run also ending where a chunk ends, for each
-  group of channels."""
-  b = px.shape[0]
-  depth, cols = op.columns(px.shape[1], grid)
-  pixel = (py * h2 + px).reshape(b, depth, cols)
-  starts = torch.ones_like(pixel, dtype=torch.bool)
-  starts[:, 1:] = pixel[:, 1:] != pixel[:, :-1]
-  groups = c // op.channel_vector(c)
-  chunk = op.z_chunk(depth)
-  mean_run = pixel.numel() / int(starts.sum())
-  starts[:, ::chunk] = True
-  return mean_run, chunk, int(starts.sum()) * groups
-
-
 def skip_backward_rows(torch, op, v2s, sample, res, gen):
   """skip_gather's backward at h7 training's shapes (batch 4, the four
   skips, the path's own indices), f32 and bf16, in two layouts of dout:
@@ -490,7 +476,9 @@ def skip_backward_rows(torch, op, v2s, sample, res, gen):
     on_pad = (px == 0) | (px == h2 - 1) | (py == 0) | (py == h2 - 1)
     flat = (bidx * h2 * h2 + py.long() * h2 + px.long()).reshape(-1)
     per_pixel = torch.bincount(flat, minlength=b * h2 * h2)
-    mean_run, chunk, flushes = column_runs(torch, op, px, py, h2, grid, c)
+    walk = op.backward_walk(1, grid)
+    mean_run, flushes = op.walk_flushes(px, py, h2, walk, c)
+    chunk = walk.z_chunk
     cx = TOWER_CHANNELS[stage]
     for dtype in (torch.float32, torch.bfloat16):
       dout = torch.randn((b, n, c), generator=gen).to(dev, dtype)
@@ -2616,13 +2604,16 @@ def packed_training(torch, mods, CoreNet, config, batch, label, dtype,
   return out
 
 
-def packed_backward_row(torch, op, v2s, sample, gen, fine_rows):
+def packed_backward_row(torch, op, v2s, sample, gen):
   """K1's backward in packed voxel order at h7's skip 5 (batch 4, 64³
   fine, 12 channels), f32 and bf16, dout in the packed step's layout (the
   skip's slice of the per-phase concatenation's gradient): kernel against
-  the float64 scatter-add, its time beside the fine order's (`fine_rows`,
-  phase 2), the plain version's, index_add_'s, the bound, the run lengths
-  along z, and the time of the copy to contiguous it does not need."""
+  the float64 scatter-add; its time beside the fine order's on the same
+  voxels and values (dout in the fine step's layout), the plain
+  version's, index_add_'s, the bound; the run lengths along z and the
+  flushes of the walk (ops/skip_gather.py::walk_flushes), which must
+  equal the fine order's, beside those of the walk one phase at a time;
+  the time of the copy to contiguous it does not need."""
   from corenet_tpu_torch.models import skip
   dev = v2s.device
   b = v2s.shape[0]
@@ -2635,9 +2626,16 @@ def packed_backward_row(torch, op, v2s, sample, gen, fine_rows):
                                     packed=True)
   fine_px, fine_py = skip.voxel_pixel_indices(matrix, sample, fine, h2 - 2,
                                               h2 - 2)
-  mean_run, chunk, flushes = column_runs(
-      torch, op, px.view(b * 8, m), py.view(b * 8, m), h2, half, c)
-  fine_run, _, _ = column_runs(torch, op, fine_px, fine_py, h2, fine, c)
+  walk = op.backward_walk(8, half)
+  mean_run, flushes = op.walk_flushes(px, py, h2, walk, c)
+  fine_run, fine_flushes = op.walk_flushes(fine_px, fine_py, h2,
+                                           op.backward_walk(1, fine), c)
+  phase_run, phase_flushes = op.walk_flushes(
+      px, py, h2, op.backward_walk(8, half, z_phases=1), c)
+  if (mean_run, flushes) != (fine_run, fine_flushes):
+    raise AssertionError(f"the packed walk's runs along z {mean_run} and "
+                         f"flushes {flushes} differ from the fine order's "
+                         f"{fine_run} and {fine_flushes}")
   bidx = torch.arange(b, device=dev)[:, None]
   flat = (bidx * h2 * h2 + py.long() * h2 + px.long()).reshape(-1)
   cx = TOWER_CHANNELS[5]
@@ -2651,7 +2649,15 @@ def packed_backward_row(torch, op, v2s, sample, gen, fine_rows):
     if step.stride() != (8 * (cx + c) * m, (cx + c) * m, 1, m):
       raise AssertionError(f"the packed step's layout has strides "
                            f"{step.stride()}")
+    # The same voxels and values in fine order, in the fine step's layout.
+    fine_dout = dout.view((b, 2, 2, 2) + half + (c,)).permute(
+        0, 4, 1, 5, 2, 6, 3, 7).reshape((b,) + fine + (c,))
+    fine_cat = torch.zeros((b, cx + c) + fine, device=dev, dtype=dtype)
+    fine_cat[:, cx:] = fine_dout.permute(0, 4, 1, 2, 3)
+    fine_step = fine_cat[:, cx:].permute(0, 2, 3, 4, 1).reshape(b, -1, c)
     got = op.skip_gather_backward(step, px, py, h2, h2, grid_resolution=half)
+    got_fine = op.skip_gather_backward(fine_step, fine_px, fine_py, h2, h2,
+                                       grid_resolution=fine)
     plain = op.skip_gather_backward_reference(dout, px, py, h2, h2)
     ref64 = op.skip_gather_backward_reference(dout.double(), px, py, h2, h2)
     mass = op.skip_gather_backward_reference(dout.double().abs(), px, py, h2,
@@ -2660,7 +2666,8 @@ def packed_backward_row(torch, op, v2s, sample, gen, fine_rows):
     bound = 1e-5 * mass + 1e-30
     if dtype == torch.bfloat16:
       bound = bound + bf16_ulp(torch, ref64)
-    for what, out in (("kernel", got), ("plain version", plain)):
+    for what, out in (("kernel", got), ("kernel in fine order", got_fine),
+                      ("plain version", plain)):
       excess = float(((out.double() - ref64).abs() - bound).max())
       if excess > 0:
         raise AssertionError(f"skip_gather backward in packed order "
@@ -2675,12 +2682,15 @@ def packed_backward_row(torch, op, v2s, sample, gen, fine_rows):
         "dout": [b, 8, m, c], "dout_strides": list(step.stride()),
         "grid_per_phase": list(half), "bytes": nbytes,
         "mean_run_along_z": mean_run, "fine_mean_run_along_z": fine_run,
-        "z_chunk": chunk, "flushes": flushes,
+        "phase_by_phase_mean_run_along_z": phase_run,
+        "z_chunk": walk.z_chunk, "flushes": flushes,
+        "fine_flushes": fine_flushes,
+        "phase_by_phase_flushes": phase_flushes,
         "max_abs_err": float((got.float() - plain.float()).abs().max()),
         "ms": device_ms(torch, lambda: op.skip_gather_backward(
             step, px, py, h2, h2, grid_resolution=half)),
-        "fine_order_ms": next(r["ms"] for r in fine_rows
-                              if r["stage"] == 5 and r["dtype"] == name),
+        "fine_order_ms": device_ms(torch, lambda: op.skip_gather_backward(
+            fine_step, fine_px, fine_py, h2, h2, grid_resolution=fine)),
         "copy_ms": device_ms(torch, lambda: step.contiguous()),
         "plain_ms": device_ms(torch, lambda: op.
                               skip_gather_backward_reference(
@@ -2693,11 +2703,14 @@ def packed_backward_row(torch, op, v2s, sample, gen, fine_rows):
     rows.append(row)
     log(f"skip_gather backward in packed order, stage 5 {name} "
         f"[{b},8,{m},{c}] strides {tuple(step.stride())}: kernel "
-        f"{row['ms']:.4f} ms (fine order {row['fine_order_ms']:.4f}), plain "
-        f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
-        f"{row['bound_ms']:.4f} ms ({nbytes} B); copy to contiguous not "
+        f"{row['ms']:.4f} ms (fine order, same voxels "
+        f"{row['fine_order_ms']:.4f}), plain {row['plain_ms']:.4f}, library "
+        f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ms ({nbytes} "
+        f"B, {row['bound_ms'] / row['ms']:.3f} of it); copy to contiguous not "
         f"made ({row['copy_ms']:.4f} ms); mean run along z {mean_run:.3f} "
-        f"(fine order {fine_run:.3f}), z chunk {chunk}, flushes {flushes}")
+        f"(fine order {fine_run:.3f}, one phase per thread "
+        f"{phase_run:.3f}), z chunk {walk.z_chunk}, flushes {flushes} (fine "
+        f"order {fine_flushes}, one phase per thread {phase_flushes})")
   return rows
 
 
@@ -2841,7 +2854,7 @@ def packed_clis(torch, mods, CoreNet, config, dev):
 
 
 def packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
-                 camera, v2x, offsets, dev, fine_bwd_rows):
+                 camera, v2x, offsets, dev):
   """Phase 12: packed (space-to-depth) execution against the fine
   decoder. Returns the figures and the two new kernel rows."""
   op, fgbg, scatter, phased = mods
@@ -2866,7 +2879,7 @@ def packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
   v2s = compute_v2s(camera.to(dev), v2x.to(dev))
   gen = torch.Generator().manual_seed(SEED + 120)
   out["k1_bwd_packed"] = packed_backward_row(torch, op, v2s, offsets.to(dev),
-                                             gen, fine_bwd_rows)
+                                             gen)
   out["k4_s4"] = phased_gt_s4_row(torch, phased, batch)
   del batch
   torch.cuda.empty_cache()
@@ -3105,7 +3118,7 @@ def main() -> int:
 
   # 12. Packed (space-to-depth) execution against the fine decoder.
   packed = packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
-                        image, camera, v2x, offsets, dev, bwd_rows)
+                        image, camera, v2x, offsets, dev)
 
   # Launches per path, each counted from zero just before the path ran:
   # one serving forward, one training step, one eval run of 3 batches, one
@@ -3227,7 +3240,8 @@ def main() -> int:
        **{key: k1p["float32"][key]
           for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                       "fine_order_ms", "copy_ms", "mean_run_along_z",
-                      "fine_mean_run_along_z")},
+                      "fine_mean_run_along_z", "z_chunk", "flushes",
+                      "fine_flushes", "phase_by_phase_flushes")},
        "bound_by": "bytes",
        "library_call": "torch.zeros(...).index_add_(0, flat_index, dout)",
        "bfloat16": {key: k1p["bfloat16"][key]

@@ -13,7 +13,7 @@ over; indices get no gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,7 +29,7 @@ _SIGNATURES = {
     "skip_gather_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p], ctypes.c_int),
     "skip_gather_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
+                        + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
                         + [ctypes.c_void_p], ctypes.c_int),
     "skip_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -148,6 +148,79 @@ def z_chunk(depth: int) -> int:
   return max(1, depth // 4)
 
 
+class BackwardWalk(NamedTuple):
+  """How the backward kernel's threads walk the voxels of one scene and
+  one channel set: a thread per (lane, chunk, column), (lane, chunk,
+  column) order. Its column is a column of one lane's phase grids, walked
+  through all `z_phases` z phases in fine depth order, z_chunk voxels of
+  it; phase pz · lanes + lane holds slice Z at fine depth
+  z_phases · Z + pz."""
+  z_phases: int  # z phases that one thread walks, interleaved
+  lanes: int     # phases walked by threads of their own
+  depth: int     # voxels along a column, all its z phases
+  columns: int   # columns of one phase grid
+  z_chunk: int   # voxels along the depth that one thread walks
+
+  @property
+  def chunks(self) -> int:
+    return -(-self.depth // self.z_chunk)
+
+
+def backward_walk(phases: int, grid_resolution: GridResolution,
+                  z_phases: Optional[int] = None) -> BackwardWalk:
+  """The walk for P `phases` grids of `grid_resolution` (D, H, W). The
+  packed decoder's 8 phases (pz, py, px), pz outermost (models/skip.py),
+  are walked two z phases to a thread, so that a thread walks a fine
+  column, z = 2Z + pz, as the fine order does; `z_phases` = 1 walks each
+  phase alone (the walk before that; tools/skip_backward_sweep.py times
+  it). Any other P walks each phase alone."""
+  d, h, w = grid_resolution
+  if z_phases is None:
+    z_phases = 2 if phases == 8 else 1
+  if z_phases not in (1, 2) or phases % z_phases:
+    raise ValueError(f"{phases} phases do not walk {z_phases} z phases "
+                     "to a thread")
+  depth = z_phases * d
+  return BackwardWalk(z_phases, phases // z_phases, depth, h * w,
+                      z_chunk(depth))
+
+
+def walk_voxels(walk: BackwardWalk) -> torch.Tensor:
+  """int64 [lanes · chunks · columns, z_chunk]: for each thread of the
+  walk, in the kernel's thread order, the voxels it walks in order, as
+  positions in the scene's P·N voxels (the order of px and py); −1 past
+  the end of a short last chunk."""
+  slices = walk.depth // walk.z_phases
+  lane, chunk, column, step = torch.meshgrid(
+      torch.arange(walk.lanes), torch.arange(walk.chunks),
+      torch.arange(walk.columns), torch.arange(walk.z_chunk), indexing="ij")
+  t = chunk * walk.z_chunk + step
+  phase = (t % walk.z_phases) * walk.lanes + lane
+  voxel = (phase * slices + t // walk.z_phases) * walk.columns + column
+  voxel = torch.where(t < walk.depth, voxel, -1)
+  return voxel.reshape(-1, walk.z_chunk)
+
+
+def walk_flushes(px: torch.Tensor, py: torch.Tensor, w2: int,
+                 walk: BackwardWalk, c: int) -> Tuple[float, int]:
+  """From the indices [B, P·N]: the mean run of equal pixels along a
+  column of the walk, and the kernel's flushes (vector atomics) for C
+  channels: one per run within a thread's chunk, for each group of
+  channel_vector(c) channels."""
+  pixel = py.long() * w2 + px.long()
+  pixel = torch.cat([pixel, pixel.new_full((pixel.shape[0], 1), -1)], 1)
+
+  def runs(voxels):
+    seq = pixel[:, voxels.to(pixel.device)]  # −1 → the appended −1
+    starts = seq[..., 1:] != seq[..., :-1]
+    return int((seq[..., 0] >= 0).sum() +
+               (starts & (seq[..., 1:] >= 0)).sum())
+
+  whole = walk_voxels(walk._replace(z_chunk=walk.depth))
+  mean_run = px.numel() / runs(whole)
+  return mean_run, runs(walk_voxels(walk)) * (c // channel_vector(c))
+
+
 def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
                          py: torch.Tensor, h2: int, w2: int,
                          grid_resolution: GridResolution) -> torch.Tensor:
@@ -156,7 +229,10 @@ def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
   the current stream for a CUDA input, the plain version for a CPU one.
   `grid_resolution` (D, H, W) says that voxel n of a phase is
   (z·H + y)·W + x, which lets the kernel sum along depth columns; (1, 1, N)
-  for voxels in no such order."""
+  for voxels in no such order. Eight phases are taken as the packed
+  decoder's (pz, py, px), pz outermost: a thread of the kernel walks a
+  fine column through both z phases (`backward_walk`). The sums do not
+  depend on the walk, only the kernel's time does."""
   if dout.dim() == 3:
     dout = dout[:, None]
   if dout.dim() != 4 or dout.dtype not in _DTYPES:
@@ -167,7 +243,8 @@ def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
   if px.shape[1] != phases * n:
     raise ValueError(f"dout has {phases} x {n} voxels, the indices "
                      f"{px.shape[1]}")
-  depth, cols = columns(n, grid_resolution)
+  columns(n, grid_resolution)
+  walk = backward_walk(phases, grid_resolution)
   device = dout.device
   if device.type == "cpu":
     return skip_gather_backward_reference(dout, px, py, h2, w2)
@@ -183,8 +260,9 @@ def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.skip_gather_bwd(dout.data_ptr(), px.data_ptr(), py.data_ptr(),
                               acc.data_ptr(), dfmap.data_ptr(), b, phases, n,
-                              h2, w2, c, *dout.stride(), depth,
-                              z_chunk(depth), dout.element_size(), stream)
+                              h2, w2, c, *dout.stride(),
+                              walk.depth // walk.z_phases, walk.z_phases,
+                              walk.z_chunk, dout.element_size(), stream)
   _raise_on(lib, err, "backward")
   global backward_launch_count
   backward_launch_count += 1

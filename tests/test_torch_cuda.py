@@ -398,56 +398,93 @@ def test_phase_loss_train_step_on_card_matches_cpu(device, monkeypatch):
   assert losses[1] == pytest.approx(losses[0], rel=1e-4)
 
 
+def _to_packed(t, grid):
+  """Fine-order [B, D·H·W] indices in the packed decoder's voxel order:
+  8 phase grids (pz, py, px) of half the resolution, phase-outer."""
+  d, h, w = grid
+  return t.view(-1, d // 2, 2, h // 2, 2, w // 2, 2).permute(
+      0, 2, 4, 6, 1, 3, 5).reshape(t.shape[0], -1).contiguous()
+
+
+def _pad_ring_indices(h2, w2, grid, device):
+  """Every voxel on a cell of the map's 1-px pad ring, the cell changing
+  every 3 voxels along z and from column to column."""
+  ring = ([(0, x) for x in range(w2)] + [(h2 - 1, x) for x in range(w2)]
+          + [(y, 0) for y in range(1, h2 - 1)]
+          + [(y, w2 - 1) for y in range(1, h2 - 1)])
+  ring = torch.tensor(ring, dtype=torch.int32, device=device)
+  d, h, w = grid
+  z = torch.arange(d, device=device)[:, None]
+  column = torch.arange(h * w, device=device)[None]
+  cell = (z // 3 + column).remainder(len(ring)).reshape(1, -1)
+  cell = (cell + torch.arange(4, device=device)[:, None]).remainder(len(ring))
+  return ring[cell, 1].contiguous(), ring[cell, 0].contiguous()
+
+
+@pytest.mark.parametrize("layout", ["step", "contiguous"])
+@pytest.mark.parametrize("indices",
+                         ["h7_path", "one_pixel", "alternating", "pad_ring"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h2,w2,c,n", H7_SKIPS)
 def test_skip_gather_backward_packed_order_matches_plain_version(
-    device, h2, w2, c, n, dtype):
+    device, h2, w2, c, n, dtype, indices, layout):
   """The backward in the packed decoder's voxel order (8 phase grids of
-  half the resolution, phase-outer) at the four h7 skip shapes, dout in
-  the packed step's layout: the skip's channel slice of a per-phase
-  [B, 8, 16 + C, D/2, H/2, W/2] gradient, read in place."""
+  half the resolution, phase-outer; a thread walks both z phases of a
+  fine column) at the four h7 skip shapes, with the h7 path's indices
+  and contended ones (every voxel on one pixel, two pixels alternating
+  along fine z, the pad ring), dout in the packed step's layout (the
+  skip's channel slice of a per-phase [B, 8, 16 + C, D/2, H/2, W/2]
+  gradient, read in place) and contiguous."""
   grid = GRIDS[n]
   half = tuple(v // 2 for v in grid)
   m = n // 8
-  fine_px, fine_py = _backward_indices("h7_path", h2, w2, n, device)
-  # The same camera's indices in packed order.
-  near, far = 0.5, 3.0
-  a, b = (far + near) / (far - near), -2 * far * near / (far - near)
-  camera = torch.tensor([[[f, 0, 0, -0.5 * f], [0, f, 0, -0.5 * f],
-                          [0, 0, a, a + b], [0, 0, 1, 1.0]]
-                         for f in (1.8, 1.9, 2.0, 2.1)], device=device)
-  v2x = torch.diag(torch.tensor([128.0] * 3 + [1.0])).expand(4, 4, 4)
-  div = 128 // grid[0]
-  matrix = compute_v2s(camera, v2x.to(device)) * torch.tensor(
-      [div, div, div, 1.0], device=device)
-  px, py = skip.voxel_pixel_indices(
-      matrix, torch.full((4, 3), 0.5, device=device), grid, h2 - 2, w2 - 2,
-      packed=True)
-  # Each voxel reads the pixel it reads in fine order.
-  to_fine = lambda t: t.view(4, 2, 2, 2, *half).permute(
-      0, 4, 1, 5, 2, 6, 3).reshape(4, n)
-  assert torch.equal(to_fine(px), fine_px)
-  assert torch.equal(to_fine(py), fine_py)
+  if indices == "pad_ring":
+    fine_px, fine_py = _pad_ring_indices(h2, w2, grid, device)
+  else:
+    fine_px, fine_py = _backward_indices(indices, h2, w2, n, device)
+  px, py = _to_packed(fine_px, grid), _to_packed(fine_py, grid)
+  if indices == "h7_path":
+    # The same camera's indices computed in packed order: each voxel
+    # reads the pixel it reads in fine order.
+    near, far = 0.5, 3.0
+    a, b = (far + near) / (far - near), -2 * far * near / (far - near)
+    camera = torch.tensor([[[f, 0, 0, -0.5 * f], [0, f, 0, -0.5 * f],
+                            [0, 0, a, a + b], [0, 0, 1, 1.0]]
+                           for f in (1.8, 1.9, 2.0, 2.1)], device=device)
+    v2x = torch.diag(torch.tensor([128.0] * 3 + [1.0])).expand(4, 4, 4)
+    div = 128 // grid[0]
+    matrix = compute_v2s(camera, v2x.to(device)) * torch.tensor(
+        [div, div, div, 1.0], device=device)
+    packed_px, packed_py = skip.voxel_pixel_indices(
+        matrix, torch.full((4, 3), 0.5, device=device), grid, h2 - 2,
+        w2 - 2, packed=True)
+    assert torch.equal(packed_px, px) and torch.equal(packed_py, py)
   dout = torch.randn((4, 8, m, c),
                      generator=torch.Generator().manual_seed(n))
   dout = dout.to(device, dtype)
-  big = torch.randn((4, 8, 16 + c) + half, device=device).to(dtype)
-  big[:, :, 16:] = dout.view((4, 8) + half + (c,)).permute(0, 1, 5, 2, 3, 4)
-  step = big[:, :, 16:].permute(0, 1, 3, 4, 5, 2).reshape(4, 8, m, c)
-  assert step.stride() == (8 * (16 + c) * m, (16 + c) * m, 1, m)
-  before = op.backward_launch_count
-  got = op.skip_gather_backward(step, px, py, h2, w2, grid_resolution=half)
-  torch.cuda.synchronize()
-  assert op.backward_launch_count == before + 1
-  assert got.dtype == dtype and got.shape == (4, h2, w2, c)
+  if layout == "step":
+    big = torch.randn((4, 8, 16 + c) + half, device=device).to(dtype)
+    big[:, :, 16:] = dout.view((4, 8) + half + (c,)).permute(
+        0, 1, 5, 2, 3, 4)
+    given = big[:, :, 16:].permute(0, 1, 3, 4, 5, 2).reshape(4, 8, m, c)
+    assert given.stride() == (8 * (16 + c) * m, (16 + c) * m, 1, m)
+  else:
+    given = dout
   ref64, s = _scatter_bounds(dout, px, py, h2, w2)
   plain = op.skip_gather_backward_reference(dout, px, py, h2, w2)
-  for out in (got, plain):
-    err = (out.double() - ref64).abs()
-    bound = 1e-5 * s + 1e-30
-    if dtype == torch.bfloat16:
-      bound = bound + _bf16_ulp(ref64)
-    assert bool((err <= bound).all()), float((err - bound).max())
+  bound = 1e-5 * s + 1e-30
+  if dtype == torch.bfloat16:
+    bound = bound + _bf16_ulp(ref64)
+  for call in range(2):
+    before = op.backward_launch_count
+    got = op.skip_gather_backward(given, px, py, h2, w2,
+                                  grid_resolution=half)
+    torch.cuda.synchronize()
+    assert op.backward_launch_count == before + 1
+    assert got.dtype == dtype and got.shape == (4, h2, w2, c)
+    for out in (got, plain):
+      err = (out.double() - ref64).abs()
+      assert bool((err <= bound).all()), float((err - bound).max())
 
 
 def test_packed_phase_loss_step_on_card_matches_cpu(device, monkeypatch):
