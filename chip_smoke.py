@@ -168,6 +168,29 @@ Phases; the run fails at the first that fails:
               --decoder_execution=packed (4 steps, launches, K4 at s = 4)
               and the eval CLI with --packed_inference against
               --nopacked_inference (mean IoU within 1e-3).
+  13. dist    data parallelism over processes (corenet_tpu_torch/parallel).
+              (a) The packed bf16 h7 step of phase 12 in an NCCL group of
+              one rank on cuda:0 against the same step without a group:
+              launches, the collectives per step, the loss and the new
+              statistics bit-equal, the gradients bit-equal or within
+              1e-6 (K1's backward adds with atomics), 20 timed steps
+              without the group, in it and without it again, one profiled
+              step each, the host time of an all-reduce. (b) 2 processes
+              over gloo, both on cuda:0 (LOCAL_RANK 0: the shape of two
+              one-card hosts), each a packed h7 step in float32 and in
+              bf16: on its 2 of the 4 scenes against the one-process step
+              on all 4 with the same weights (DIST_*'s rules; the
+              one-process step with its halves swapped beside), and on the
+              same 2 scenes each against one process on them (bit-equal
+              loss and statistics); the ranks' launches, gradients and
+              parameters after Adam equal; eval-mode logits of 2 scenes
+              at a batch of 2 against a batch of 4. (c) TrainPipeline on
+              2 gloo ranks at 32³ with a recurrent eval of 5 scenes
+              (shards of 3 and 2): the eval's CSV against one process's,
+              rank 0's summary tiles from both ranks, checkpoints by rank
+              0 alone, a resume that goes on with each rank's shard; then
+              the train CLI under cli.launch and torchrun (NCCL, one
+              process), 4 steps and a resume.
 
 The float32 phases compute in float32: TF32 is switched off for
 convolutions and matmuls (phase 10 switches it on for its one TF32 row),
@@ -184,6 +207,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import hashlib
 import json
 import math
 import os
@@ -679,6 +703,51 @@ def feeds_batch_renorm(name):
       or re.fullmatch(r"decoder\.stage_\d_c\.bias", name) is not None)
 
 
+def grad_gap(ref, got):
+  """Gradients `got` against `ref` (name → tensor), leaving out the conv
+  biases a BatchRenorm normalizes (their true gradient is 0): all of them
+  together (relative L2), the worst one (relative L2) and the lowest
+  cosine with their names, and how many were compared."""
+  worst, worst_name, checked = 0.0, None, 0
+  cosine, cosine_name = 1.0, None
+  diff_sq = norm_sq = 0.0
+  for name, gr in ref.items():
+    if feeds_batch_renorm(name):
+      continue
+    gg = got[name]
+    rel = float((gg - gr).norm() / gr.norm())
+    cos = float((gg * gr).sum() / (gg.norm() * gr.norm()))
+    diff_sq += float((gg - gr).norm()) ** 2
+    norm_sq += float(gr.norm()) ** 2
+    checked += 1
+    if not math.isfinite(rel) or rel > worst:
+      worst, worst_name = rel, name
+    if not math.isfinite(cos) or cos < cosine:
+      cosine, cosine_name = cos, name
+  return (math.sqrt(diff_sq / norm_sq), worst, worst_name, cosine,
+          cosine_name, checked)
+
+
+def grad_levels(ref, got):
+  """The three levels of tests/test_train_step_grad_parity.py: (cosine of
+  all gradients together, the lowest cosine of those that carry mass
+  (≥ 1e-4 of the mean norm), the worst relative L2 next to the loss), the
+  conv biases a BatchRenorm normalizes left out."""
+  names = [n for n in ref if not feeds_batch_renorm(n)]
+  dot = sum(float((ref[n].double() * got[n].double()).sum()) for n in names)
+  nr = math.sqrt(sum(float(ref[n].double().norm()) ** 2 for n in names))
+  ng = math.sqrt(sum(float(got[n].double().norm()) ** 2 for n in names))
+  lowest, near = 1.0, 0.0
+  for n in names:
+    r, g = ref[n].double(), got[n].double()
+    if float(r.norm()) < 1e-4 * nr / math.sqrt(len(names)):
+      continue
+    lowest = min(lowest, float((r * g).sum() / (r.norm() * g.norm())))
+    if n.startswith(NEAR_LOSS):
+      near = max(near, float((g - r).norm() / r.norm()))
+  return dot / (nr * ng), lowest, near
+
+
 def compare_with_plain_step(torch, modules, state, step, batch, label,
                             bf16=False):
   """One step with the kernels and the same step, from the same state,
@@ -721,23 +790,8 @@ def compare_with_plain_step(torch, modules, state, step, batch, label,
   if loss_rel > 1e-6:
     raise AssertionError(f"kernel step loss {loss_k} and plain step loss "
                          f"{loss_p} differ by {loss_rel} relative")
-  worst, worst_name, checked = 0.0, None, 0
-  cosine, cosine_name = 1.0, None
-  diff_sq = norm_sq = 0.0
-  for name, gp in grads_p.items():
-    if feeds_batch_renorm(name):
-      continue
-    gk = grads_k[name]
-    rel = float((gk - gp).norm() / gp.norm())
-    cos = float((gk * gp).sum() / (gk.norm() * gp.norm()))
-    diff_sq += float((gk - gp).norm()) ** 2
-    norm_sq += float(gp.norm()) ** 2
-    checked += 1
-    if not math.isfinite(rel) or rel > worst:
-      worst, worst_name = rel, name
-    if not math.isfinite(cos) or cos < cosine:
-      cosine, cosine_name = cos, name
-  together = math.sqrt(diff_sq / norm_sq)
+  together, worst, worst_name, cosine, cosine_name, checked = grad_gap(
+      grads_p, grads_k)
   if bf16:
     if not (together <= BF16_GRADS_TOL and cosine >= BF16_COSINE):
       raise AssertionError(
@@ -1199,13 +1253,13 @@ def event_ms(torch, fn, reps=3):
   return start.elapsed_time(end) / reps
 
 
-def write_eval_dataset(root, seed):
+def write_eval_dataset(root, seed, scenes=EVAL_SCENES):
   """A seeded dataset in the on-disk format of corenet_tpu_torch/data:
   mesh NPZs (the cube shell, a small sphere near a corner and a big one
-  at the centre), EVAL_SCENES scene NPZs (the cube alone or with a sphere, each moved by
-  at most 0.05 per axis; 256² images stored as uint8 arrays inside 0-d
-  object arrays, so that no image codec is needed; the serving cameras)
-  and the manifest. Returns (manifest path, meshes dir)."""
+  at the centre), `scenes` scene NPZs (the cube alone or with a sphere,
+  each moved by at most 0.05 per axis; 256² images stored as uint8
+  arrays inside 0-d object arrays, so that no image codec is needed; the
+  serving cameras) and the manifest. Returns (manifest path, meshes dir)."""
   import numpy as np
   rng = np.random.default_rng(seed)
   (cube_id, _), (sphere_id, _) = EVAL_CLASSES
@@ -1234,7 +1288,7 @@ def write_eval_dataset(root, seed):
     return box
 
   files = []
-  for i in range(EVAL_SCENES):
+  for i in range(scenes):
     layout = layouts[i % len(layouts)]
     o2w = np.tile(np.eye(4, dtype=np.float32), (len(layout), 1, 1))
     o2w[:, :3, 3] = rng.uniform(-0.05, 0.05, (len(layout), 3))
@@ -2889,6 +2943,802 @@ def packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
   return out
 
 
+# Phase 13: data parallelism over processes (corenet_tpu_torch/parallel/).
+# (b): 2 ranks of 2 scenes each against one process on all 4 scenes with
+# the same weights. float32 (TF32 off): the loss within DIST_LOSS_TOL
+# relative, the running statistics within DIST_STATS_TOL of the largest,
+# the gradients by the three levels the port's training step is held to
+# against JAX's (tests/test_train_step_grad_parity.py): all together at
+# cosine ≥ 0.96, each that carries mass at ≥ 0.90, the layers next to the
+# loss within 5 % relative L2. The ranks take BatchRenorm's statistics as
+# a mean of two means, one process as one mean: they part in the last
+# bits, and the train-mode backward carries that to about 5 % in some of
+# the encoder's gradients, as far as the one-process step goes from itself
+# when its scenes are reordered (H100, 700.00 W). Packed bf16: the loss
+# within DIST_BF16_LOSS_TOL relative. Its statistics and gradients have no
+# bit reference in one process on 4 scenes: the card's bf16 convolutions
+# round the same scenes differently at a batch of 2 and of 4 (eval-mode
+# logits part by up to 2.5 on an H100, measured beside). So both dtypes
+# are also held where a reference exists: the ranks each on the same 2
+# scenes against one process on those 2, whose loss and statistics the
+# mean over equal ranks leaves bit for bit, and whose gradients only the
+# order of K1's backward atomics moves (DIST_SAME_GRAD_TOL, each
+# gradient's relative L2).
+DIST_LOSS_TOL = 1e-5
+DIST_STATS_TOL = 1e-5
+DIST_BF16_LOSS_TOL = 1e-3
+DIST_SAME_GRAD_TOL = 1e-4
+NEAR_LOSS = ("decoder.stage_5", "decoder.stage_6", "decoder.rt_skip_5")
+# (a): the step in an NCCL group of one against the step without a group,
+# where the two are not bit-equal (see dist_nccl_world1).
+DIST_WORLD1_TOL = 1e-6
+DIST_WORLD = 2
+DIST_SCENES = 5  # (c)'s eval: shards of 3 and 2 scenes, 2 and 1 batches
+DIST_RES = (32, 32, 32)  # (c)'s pipeline
+DIST_TIMEOUT_S = 600
+DIST_DTYPES = (("float32", None), ("bfloat16", "bfloat16"))
+
+
+def renorm_collectives(torch, model, run):
+  """Runs `run()` and returns the all-reduces its BatchRenorm layers need
+  by their inputs' dtypes: 4 for float32 (two reduces and their backward),
+  2 for bf16 (one)."""
+  from corenet_tpu_torch.models.batch_renorm import BatchRenorm
+  dtypes = []
+  hooks = [m.register_forward_pre_hook(
+      lambda module, args: dtypes.append(args[0].dtype))
+           for m in model.modules() if isinstance(m, BatchRenorm)]
+  try:
+    out = run()
+  finally:
+    for hook in hooks:
+      hook.remove()
+  return out, sum(4 if d == torch.float32 else 2 for d in dtypes)
+
+
+def step_times(torch, step, state, batch):
+  """TRAIN_RUNS steps one by one on the host clock, each ended by a
+  synchronize: their times in ms."""
+  times = []
+  for _ in range(TRAIN_RUNS):
+    start = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+  return times
+
+
+def dist_nccl_world1(torch, mods, CoreNet, config, batch, dev, root):
+  """Phase 13 (a): the packed bf16 h7 step on GT made in the step (phase
+  12's batch of 4) inside an NCCL group of one rank on cuda:0, against the
+  same step from the same state without a group, and once more without
+  (deterministic cuDNN). The forward has no order-dependent sum, so the
+  loss and the new statistics must be bit-equal. Gradients must be
+  bit-equal too where two runs without a group are; K1's backward adds
+  with atomics (csrc/skip_gather.cu), so two runs may differ in the order
+  of its float32 sums, and then each gradient must lie within
+  DIST_WORLD1_TOL relative L2 of the run without a group. Then
+  TRAIN_RUNS timed steps without a group, in the group, and without it
+  again: their difference is the collectives' cost. Returns the
+  figures."""
+  from corenet_tpu_torch.parallel import mesh
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 130,
+                          phase_output=True, compute_dtype=torch.bfloat16,
+                          packed_decoder=True)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+  state, _ = step(state, batch)  # cuDNN's plans, the kernels' first calls
+  torch.cuda.synchronize()
+  snap_model = {k: v.clone() for k, v in model.state_dict().items()}
+  snap_opt = copy.deepcopy(state.optimizer.state_dict())
+
+  def one_step():
+    model.load_state_dict(snap_model)
+    state.optimizer.load_state_dict(snap_opt)
+    torch.cuda.synchronize()
+    zero_counts(*mods)
+    count = mesh.collective_count
+    torch.backends.cudnn.deterministic = True
+    try:
+      (new_state, metrics), renorm = renorm_collectives(
+          torch, model, lambda: step(state, batch))
+      torch.cuda.synchronize()
+    finally:
+      torch.backends.cudnn.deterministic = False
+    return {"loss": float(metrics["loss"]),
+            "grads": {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()},
+            "stats": {n: b.detach().clone()
+                      for n, b in model.named_buffers()},
+            "launches": launch_counts(*mods),
+            "collectives": mesh.collective_count - count,
+            "renorm_collectives": renorm,
+            "global_step": new_state.global_step - state.global_step}
+
+  def profiled():
+    holder = [state]
+
+    def one():
+      holder[0], _ = step(holder[0], batch)
+
+    return device_profile(torch, one)
+
+  alone = one_step()
+  alone_ms = step_times(torch, step, state, batch)
+  alone_profile = profiled()
+  mesh.initialize(backend="nccl", init_method="file://" + os.path.join(
+      root, "nccl_world1_store"), rank=0, world_size=1, device=dev)
+  try:
+    grouped = one_step()
+    group_ms = step_times(torch, step, state, batch)
+    group_profile = profiled()
+    # One all-reduce of a BatchRenorm layer's [2, C] moments, C = 256:
+    # host time per call over 200 calls, ended by a synchronize.
+    x = torch.ones((2, 256), device=dev)
+    mesh.all_reduce_sum(x)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(200):
+      mesh.all_reduce_sum(x)
+    torch.cuda.synchronize()
+    all_reduce_us = (time.perf_counter() - start) / 200 * 1e6
+    # The same through torch.distributed alone (no autograd, no copy).
+    import torch.distributed as dist
+    start = time.perf_counter()
+    for _ in range(200):
+      dist.all_reduce(x)
+    torch.cuda.synchronize()
+    raw_all_reduce_us = (time.perf_counter() - start) / 200 * 1e6
+    # Whether a collective waits for the card: the host time of one
+    # all-reduce enqueued behind about 50 ms of matrix products.
+    a = torch.randn((8192, 8192), device=dev)
+    b = a @ a
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(20):
+      b = a @ a
+    queued_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    mesh.all_reduce_sum(x)
+    behind_ms = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    del a, b
+  finally:
+    mesh.shutdown()
+  again = one_step()
+  again_ms = step_times(torch, step, state, batch)
+
+  for label, run in (("without a group", alone), ("in the group", grouped)):
+    if run["launches"] != (4, 4, 1, 1, 1) or run["global_step"] != BATCH:
+      raise AssertionError(f"h7 packed bf16 step {label} launched "
+                           f"{run['launches']}, advanced "
+                           f"{run['global_step']}; expected (4, 4, 1, 1, 1) "
+                           f"and {BATCH}")
+  expected = grouped["renorm_collectives"] + 2 + 1  # the loss's, the grads'
+  if alone["collectives"] != 0 or grouped["collectives"] != expected:
+    raise AssertionError(f"collectives per step: {alone['collectives']} "
+                         f"without a group, {grouped['collectives']} in it "
+                         f"(expected 0 and {expected})")
+  if not alone["loss"] == grouped["loss"] == again["loss"]:
+    raise AssertionError(f"losses {alone['loss']}, {grouped['loss']} in the "
+                         f"group, {again['loss']} differ")
+  for name, value in alone["stats"].items():
+    if not torch.equal(value, grouped["stats"][name]):
+      raise AssertionError(f"statistic {name} differs in the group")
+
+  def gap(other):
+    equal = all(torch.equal(g, other["grads"][n])
+                for n, g in alone["grads"].items())
+    worst = max((float((other["grads"][n] - g).norm() / g.norm()), n)
+                for n, g in alone["grads"].items() if float(g.norm()) > 0)
+    return equal, worst
+
+  group_equal, group_worst = gap(grouped)
+  floor_equal, floor_worst = gap(again)
+  if floor_equal and not group_equal:
+    raise AssertionError(f"two steps without a group are bit-equal, the "
+                         f"step in the group is not: {group_worst}")
+  tolerance = max(DIST_WORLD1_TOL, 10 * floor_worst[0])
+  if not group_equal and group_worst[0] > tolerance:
+    raise AssertionError(f"gradient {group_worst[1]} in the group differs "
+                         f"by {group_worst[0]} relative L2 (tolerance "
+                         f"{tolerance}; two runs without a group: "
+                         f"{floor_worst})")
+  out = {"loss": alone["loss"], "launches": grouped["launches"],
+         "collectives_per_step": grouped["collectives"],
+         "renorm_collectives": grouped["renorm_collectives"],
+         "renorm_layers": sum(1 for n in alone["stats"]
+                              if n.endswith(".steps")),
+         "grads_bit_equal": group_equal, "worst_grad_rel": group_worst,
+         "no_group_repeat_bit_equal": floor_equal,
+         "no_group_repeat_worst_grad_rel": floor_worst,
+         "median_ms_no_group": statistics.median(alone_ms),
+         "median_ms_group": statistics.median(group_ms),
+         "median_ms_no_group_after": statistics.median(again_ms),
+         "ms_no_group": alone_ms, "ms_group": group_ms,
+         "ms_no_group_after": again_ms, "all_reduce_us": all_reduce_us,
+         "raw_all_reduce_us": raw_all_reduce_us,
+         "all_reduce_behind_queue_ms": behind_ms,
+         "queue_enqueue_ms": queued_ms,
+         "busy_ms_no_group": alone_profile and alone_profile["busy_ms"],
+         "busy_ms_group": group_profile and group_profile["busy_ms"],
+         "profile_group_top": group_profile and group_profile["top"]}
+  out["collectives_ms"] = out["median_ms_group"] - statistics.mean(
+      [out["median_ms_no_group"], out["median_ms_no_group_after"]])
+  log(f"dist (a) NCCL world 1 on cuda:0, h7 packed bf16 step on GT made in "
+      f"the step, batch {BATCH}: launches {grouped['launches']} with and "
+      f"without the group; {grouped['collectives']} collectives per step "
+      f"({out['renorm_layers']} BatchRenorm layers: "
+      f"{grouped['renorm_collectives']} all-reduces, forward and backward; "
+      f"the loss 2; the gradients 1); loss {alone['loss']:.7f} bit-equal, "
+      f"statistics bit-equal, gradients "
+      + ("bit-equal" if group_equal else
+         f"worst {group_worst[0]:.2e} ({group_worst[1]})") +
+      " (two runs without a group: " +
+      ("bit-equal" if floor_equal else
+       f"worst {floor_worst[0]:.2e} ({floor_worst[1]})") +
+      f"); median step {out['median_ms_no_group']:.3f} ms without a group, "
+      f"{out['median_ms_group']:.3f} ms in it, "
+      f"{out['median_ms_no_group_after']:.3f} ms without it again "
+      f"({TRAIN_RUNS} steps each): the collectives cost "
+      f"{out['collectives_ms']:.3f} ms per step; one NCCL all-reduce of "
+      f"[2, 256] takes {all_reduce_us:.1f} us of host time "
+      f"({raw_all_reduce_us:.1f} us through torch.distributed alone), "
+      f"{behind_ms:.3f} ms behind a queue of 20 matrix products enqueued "
+      f"in {queued_ms:.3f} ms; device busy "
+      f"{out['busy_ms_no_group']} ms without the group, "
+      f"{out['busy_ms_group']} ms in it (one profiled step each); top "
+      f"kernels in the group {out['profile_group_top']}")
+  del model, state, step, snap_model, snap_opt, alone, grouped, again
+  torch.cuda.empty_cache()
+  return out
+
+
+def run_dist_workers(torch, task, tag, root, args):
+  """Runs `chip_smoke.py --dist-worker` in DIST_WORLD processes, each
+  with LOCAL_RANK 0 (the shape of DIST_WORLD one-card hosts, all on
+  cuda:0), joined over gloo; returns their results in rank order. A rank
+  that fails or a run past DIST_TIMEOUT_S fails the phase, and every
+  process is ended."""
+  env = dict(os.environ, LOCAL_RANK="0", OMP_NUM_THREADS="4")
+  procs = [subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), "--dist-worker", task, tag,
+       str(rank), str(DIST_WORLD), root] + [str(a) for a in args],
+      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+           for rank in range(DIST_WORLD)]
+  outs = []
+  try:
+    for p in procs:
+      outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0].decode(
+          errors="replace"))
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+        p.communicate()
+  for rank, (p, text) in enumerate(zip(procs, outs)):
+    if p.returncode != 0:
+      raise AssertionError(f"dist {tag} rank {rank} exited with "
+                           f"{p.returncode}:\n{text[-6000:]}")
+  return [torch.load(os.path.join(root, f"{tag}_rank{rank}.pt"))
+          for rank in range(DIST_WORLD)]
+
+
+def params_digest(model):
+  digest = hashlib.sha256()
+  for p in model.parameters():
+    digest.update(p.detach().float().cpu().numpy().tobytes())
+  return digest.hexdigest()
+
+
+def dist_step_rank(torch, mods, CoreNet, config, batch, dtype, dev,
+                   deterministic=False):
+  """One packed step from SEED + 140's weights on `batch` (phase 12's
+  scenes); the figures of (b)."""
+  from corenet_tpu_torch.parallel import mesh
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 140,
+                          phase_output=True,
+                          compute_dtype=getattr(torch, dtype) if dtype
+                          else None, packed_decoder=True)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+  torch.cuda.synchronize()
+  zero_counts(*mods)
+  count = mesh.collective_count
+  torch.backends.cudnn.deterministic = deterministic
+  try:
+    new_state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  out = {"loss": float(metrics["loss"]), "launches": launch_counts(*mods),
+         "collectives": mesh.collective_count - count,
+         "global_step": new_state.global_step,
+         "grads": {n: p.grad.detach().float().cpu()
+                   for n, p in model.named_parameters()},
+         "stats": {n: b.detach().cpu() for n, b in model.named_buffers()},
+         "params_digest": params_digest(model)}
+  del model, state, step
+  torch.cuda.empty_cache()
+  return out
+
+
+def tensors_digest(tensors):
+  digest = hashlib.sha256()
+  for t in tensors:
+    digest.update(t.numpy().tobytes())
+  return digest.hexdigest()
+
+
+def dist_worker_step(torch, mods, rank, dev, root, batch_path):
+  """(b) on one rank, in each dtype: the step on its 2 scenes of the
+  batch ("split") and on scenes 0 and 1 ("same", every rank alike)."""
+  from corenet_tpu_torch.models.corenet import (
+      CoreNet, CoreNetConfig, DecoderConfig)
+  host = torch.load(batch_path)
+  per = BATCH // DIST_WORLD
+  config = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
+  out = {}
+  for kind, lo, deterministic in (("split", rank * per, False),
+                                  ("same", 0, True)):
+    batch = {k: v[lo:lo + per].to(dev) for k, v in host.items()}
+    for name, dtype in DIST_DTYPES:
+      result = dist_step_rank(torch, mods, CoreNet, config, batch, dtype,
+                              dev, deterministic)
+      if rank != 0:  # rank 0's gradients stand for both (the digests)
+        result["grads_digest"] = tensors_digest(
+            result.pop("grads").values())
+      out[f"{name} {kind}"] = result
+  return out
+
+
+def stats_gap(ref, got):
+  """The worst statistic's largest difference, relative to its largest
+  value, and its name."""
+  return max((float((got[k].float() - v.float()).abs().max()
+                    / max(float(v.float().abs().max()), 1e-30)), k)
+             for k, v in ref.items())
+
+
+def batch_dependence(torch, CoreNet, config, batch, dev):
+  """Eval-mode logits of scenes 0 and 1 at a batch of 2 against the same
+  scenes in the batch of 4, in each dtype: the largest difference and the
+  share of logits that differ."""
+  from corenet_tpu_torch.train.step import compute_v2s
+  v2s = compute_v2s(batch["camera"], batch["v2x"])
+  out = {}
+  for name, dtype in DIST_DTYPES:
+    model, _ = seeded_model(torch, CoreNet, config, SEED + 140,
+                            phase_output=True,
+                            compute_dtype=getattr(torch, dtype) if dtype
+                            else None, packed_decoder=True)
+    model = model.to(dev).eval()
+    with torch.no_grad():
+      four = model(batch["image"], v2s, batch["grid_offset"])[:2].float()
+      two = model(batch["image"][:2], v2s[:2],
+                  batch["grid_offset"][:2]).float()
+    out[name] = {"max_abs": float((four - two).abs().max()),
+                 "max_abs_logit": float(four.abs().max()),
+                 "share_differing": float((four != two).float().mean())}
+    del model, four, two
+    torch.cuda.empty_cache()
+  return out
+
+
+def dist_gloo_two_ranks(torch, mods, CoreNet, config, host_batch, v2x, dev,
+                        root):
+  """Phase 13 (b): 2 processes over gloo, both on cuda:0, each a packed h7
+  step at full width, in float32 and in bf16: on its 2 of phase 12's 4
+  scenes against the one-process step on all 4 (DIST_*'s rules, the
+  step's spread under a swap of its halves beside), and on scenes 0 and 1
+  each against one process on those 2. Each rank's launches are the
+  step's; both ranks hold the same averaged gradients and, after Adam,
+  the same parameters bit for bit. Returns the figures."""
+  path = os.path.join(root, "dist_batch.pt")
+  torch.save(host_batch, path)
+  batch = {k: v.to(dev) for k, v in host_batch.items()}
+  per = BATCH // DIST_WORLD
+  order = torch.tensor([2, 3, 0, 1], device=dev)
+  refs = {}
+  for name, dtype in DIST_DTYPES:
+    refs[f"{name} split"] = dist_step_rank(torch, mods, CoreNet, config,
+                                           batch, dtype, dev)
+    if dtype is None:  # float32: the spread the gradients' levels allow
+      refs[f"{name} swapped"] = dist_step_rank(
+          torch, mods, CoreNet, config,
+          {k: v.index_select(0, order) for k, v in batch.items()}, dtype,
+          dev)
+    refs[f"{name} same"] = dist_step_rank(
+        torch, mods, CoreNet, config,
+        {k: v[:per] for k, v in batch.items()}, dtype, dev, True)
+  dependence = batch_dependence(torch, CoreNet, config,
+                                dict(batch, v2x=v2x.to(dev)), dev)
+  del batch
+  torch.cuda.empty_cache()
+  start = time.perf_counter()
+  ranks = run_dist_workers(torch, "step", "step", root, [path])
+  out = {"workers_s": time.perf_counter() - start,
+         "batch_dependence": dependence}
+  failed = []
+  for name, _ in DIST_DTYPES:
+    for kind in ("split", "same"):
+      key = f"{name} {kind}"
+      ref, got = refs[key], [r[key] for r in ranks]
+      for rank, r in enumerate(got):
+        if r["launches"] != (4, 4, 1, 1, 1) or r["global_step"] != BATCH:
+          raise AssertionError(f"dist (b) {key} rank {rank} launched "
+                               f"{r['launches']}, counted "
+                               f"{r['global_step']}")
+      if not (got[0]["loss"] == got[1]["loss"]
+              and got[0]["params_digest"] == got[1]["params_digest"]
+              and tensors_digest(got[0]["grads"].values())
+              == got[1]["grads_digest"]
+              and all(torch.equal(v, got[1]["stats"][k])
+                      for k, v in got[0]["stats"].items())):
+        raise AssertionError(f"dist (b) {key}: the ranks' losses, "
+                             "statistics, gradients or parameters after "
+                             "Adam differ")
+      loss_rel = abs(got[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+      stats_rel, stats_name = stats_gap(ref["stats"], got[0]["stats"])
+      together, worst, worst_name, cosine, cosine_name, checked = grad_gap(
+          ref["grads"], got[0]["grads"])
+      figures = {"loss": ref["loss"], "loss_rel": loss_rel,
+                 "stats_rel": stats_rel, "worst_stat": stats_name,
+                 "grads_together_rel": together, "worst_grad_rel": worst,
+                 "worst_grad": worst_name, "lowest_cosine": cosine,
+                 "lowest_cosine_grad": cosine_name, "grads_checked": checked,
+                 "launches": [r["launches"] for r in got],
+                 "collectives_per_step": got[0]["collectives"]}
+      if kind == "same":
+        ok = (loss_rel == 0 and stats_rel == 0
+              and worst <= DIST_SAME_GRAD_TOL)
+        rule = (f"loss and statistics bit-equal, each gradient within "
+                f"{DIST_SAME_GRAD_TOL}")
+      else:
+        levels = grad_levels(ref["grads"], got[0]["grads"])
+        figures.update(global_cosine=levels[0],
+                       lowest_massive_cosine=levels[1],
+                       near_loss_worst_rel=levels[2])
+        extra = (f"; levels: cosine together {levels[0]:.6f}, lowest "
+                 f"{levels[1]:.6f}, next to the loss {levels[2]:.2e}")
+        if name == "float32":
+          floor = grad_gap(ref["grads"], refs[f"{name} swapped"]["grads"])
+          figures.update(swapped_together_rel=floor[0],
+                         swapped_worst_rel=floor[1],
+                         swapped_lowest_cosine=floor[3])
+          extra += (f"; the one-process step with its halves swapped: "
+                    f"{floor[0]:.2e} together, worst {floor[1]:.2e}, lowest "
+                    f"cosine {floor[3]:.6f}")
+          ok = (loss_rel <= DIST_LOSS_TOL and stats_rel <= DIST_STATS_TOL
+                and levels[0] >= 0.96 and levels[1] >= 0.90
+                and levels[2] <= 0.05)
+          rule = (f"loss {DIST_LOSS_TOL}, statistics {DIST_STATS_TOL}, "
+                  "gradients cosine ≥ 0.96 together, ≥ 0.90 each, 5 % next "
+                  "to the loss")
+        else:
+          ok = loss_rel <= DIST_BF16_LOSS_TOL
+          rule = f"loss {DIST_BF16_LOSS_TOL}"
+      out[key] = figures
+      what = ("2 scenes each, against one process on 4" if kind == "split"
+              else "the same 2 scenes each, against one process on them")
+      log(f"dist (b) 2 gloo ranks on cuda:0, h7 packed {name}, {what}: "
+          f"loss {ref['loss']:.7f}, {loss_rel:.2e} relative; statistics "
+          f"{stats_rel:.2e} ({stats_name}); gradients together "
+          f"{together:.2e}, worst {worst:.2e} ({worst_name}), lowest cosine "
+          f"{cosine:.6f}" + (extra if kind == "split" else "") +
+          f"; launches {figures['launches']}; "
+          f"{got[0]['collectives']} collectives per step; both ranks' "
+          f"gradients and parameters after Adam bit-equal; rule: {rule}: "
+          + ("passed" if ok else "FAILED"))
+      if not ok:
+        failed.append(key)
+  log(f"dist (b): eval-mode logits of scenes 0 and 1 at a batch of 2 "
+      f"against the batch of 4, one process, no group: {dependence}; the "
+      f"two ranks' processes took {out['workers_s']:.1f} s")
+  if failed:
+    raise AssertionError(f"dist (b) outside its rules: {failed}")
+  return out
+
+
+def dist_train_config(manifest, meshes_dir, root, name):
+  """h7_train_config at DIST_RES: a batch of 1 per rank, thread loaders,
+  checkpoints only at the start and the end, the loss every 2 examples,
+  the recurrent eval at global step 2 with a tile per rank and 2 in the
+  summaries."""
+  full = h7_train_config(manifest, meshes_dir, root)
+  res = dict(zip(("depth", "height", "width"), DIST_RES))
+  train = full["train"]
+  train["data"]["voxelization_config"]["resolution"] = res
+  train["data"]["data_loader"].update(batch_size=1, num_data_workers=2,
+                                      worker_processes=False)
+  train.update(checkpoint_interval=10 ** 6,
+               persistent_checkpoint_interval=10 ** 6,
+               tensorboard_log_interval=2, fill_audit_interval=2)
+  eval_dict = full["eval"][0]["config"]
+  eval_dict["data"]["voxelization_config"]["resolution"] = res
+  eval_dict["data"]["data_loader"].update(batch_size=2, num_data_workers=2,
+                                          worker_processes=False)
+  eval_dict.update(num_qualitative_results=1,
+                   num_qualitative_results_in_tensor_board=2)
+  full["eval"][0]["start_step"] = 2
+  full["output_path"] = os.path.join(root, name)
+  return full
+
+
+def dist_worker_pipeline(torch, mods, rank, dev, root, config_path,
+                         max_steps):
+  """(c) on one rank: TrainPipeline.run with its recurrent eval, recording
+  the scenes of each batch, each checkpoint saved and each step's
+  launches."""
+  from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.train import checkpoint
+  from corenet_tpu_torch.train import pipeline as pipeline_mod
+  torch.backends.cudnn.deterministic = True
+  record = {"batches": [], "saves": [], "launches": []}
+  real_loader = pipeline_mod.TrainPipeline._epoch_loader
+  real_save = checkpoint.CheckpointManager.save_state
+  real_make_step = pipeline_mod.make_train_step
+
+  def epoch_loader(self, start):
+    for hb, valid in real_loader(self, start):
+      record["batches"].append(list(hb.scene_ids))
+      yield hb, valid
+
+  def save_state(self, state, *args, **kwargs):
+    record["saves"].append(state.global_step)
+    return real_save(self, state, *args, **kwargs)
+
+  def counted_step(*args, **kwargs):
+    step = real_make_step(*args, **kwargs)
+
+    def wrapped(state, batch):
+      counts = launch_counts(*mods)
+      result = step(state, batch)
+      record["launches"].append(tuple(
+          a - b for a, b in zip(launch_counts(*mods), counts)))
+      return result
+
+    return wrapped
+
+  pipeline_mod.TrainPipeline._epoch_loader = epoch_loader
+  checkpoint.CheckpointManager.save_state = save_state
+  pipeline_mod.make_train_step = counted_step
+  with open(config_path) as f:
+    full = cfg.config_from_dict(cfg.TrainPipeline, json.load(f))
+  p = pipeline_mod.TrainPipeline(full.train, full.output_path, device=dev)
+  p.run(recurrent_evals=pipeline_mod.RecurrentEvals(full.eval,
+                                                    full.output_path),
+        max_steps=int(max_steps))
+  record.update(global_step=p.state.global_step, fill_rounds=p.fill_rounds,
+                params_digest=params_digest(p.model))
+  return record
+
+
+def shard_scenes(full, rank, epoch):
+  """The scene ids of rank's shard of an epoch, from the dataset manager
+  and distributed_indices: the order (c)'s batches must follow."""
+  from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.data.loader import distributed_indices
+  from corenet_tpu_torch.data.manager import DatasetManager
+  config = cfg.config_from_dict(cfg.TrainPipeline, full)
+  dataset = DatasetManager(config.train.data).create_dataset(
+      local_seed=epoch)
+  covered = len(dataset) // DIST_WORLD * DIST_WORLD  # a batch of 1
+  indices = distributed_indices(len(dataset), DIST_WORLD, rank,
+                                pad_data=True, shuffle=False)
+  return [dataset[int(i)].scene_id for i in indices[:covered // DIST_WORLD]]
+
+
+def dist_pipeline(torch, mods, dev, root):
+  """Phase 13 (c): TrainPipeline on 2 gloo ranks on cuda:0 at DIST_RES in
+  bf16 with the phase loss on DIST_SCENES scenes, a batch of 1 per rank:
+  one step and the recurrent eval of all the scenes (shards of 3 and 2
+  scenes, 2 and 1 batches), then a resume for 2 more steps. Checks the
+  eval's CSV on rank 0 against a one-process eval of the same weights
+  (deterministic cuDNN), rank 0's summaries holding the tiles of both
+  ranks, each checkpoint written once (by rank 0), both ranks' weights
+  equal, the static fill, each step's launches, and that the resumed run
+  goes on with the next batch of each rank's shard. Then the train CLI
+  through cli.launch and torchrun (--standalone, one process, NCCL): 4
+  steps, and a resume for 2. Returns the figures."""
+  import shutil
+  from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.train import pipeline as pipeline_mod
+  manifest, meshes_dir = write_eval_dataset(
+      os.path.join(root, "dist_ds"), SEED + 150, scenes=DIST_SCENES)
+  full = dist_train_config(manifest, meshes_dir, root, "dist_out")
+  path = os.path.join(root, "dist_train.json")
+  with open(path, "w") as f:
+    json.dump(full, f)
+  out = full["output_path"]
+  start = time.perf_counter()
+  first = run_dist_workers(torch, "pipeline", "pipeline1", root, [path, 2])
+  first_s = time.perf_counter() - start
+
+  # The one-process eval of the weights the eval saw: the newest .cpt.
+  eval_csv = os.path.join(out, "evals", "full_eval", "2",
+                          "voxel_metrics.csv")
+  one = dist_train_config(manifest, meshes_dir, root, "dist_one")
+  config = cfg.config_from_dict(cfg.TrainPipeline, one)
+  os.makedirs(os.path.join(one["output_path"], "cpt", "persistent"))
+  shutil.copy(os.path.join(out, "cpt", "persistent", "state_000000002.cpt"),
+              os.path.join(one["output_path"], "cpt", "persistent"))
+  single = pipeline_mod.TrainPipeline(config.train, one["output_path"],
+                                      device=dev)
+  single.create_or_load_state()
+  torch.backends.cudnn.deterministic = True
+  try:
+    single_miou = pipeline_mod.RecurrentEvals(
+        config.eval, one["output_path"]).run_single(
+            single, config.eval[0].config, 2)
+  finally:
+    torch.backends.cudnn.deterministic = False
+  del single
+  torch.cuda.empty_cache()
+  with open(eval_csv) as f, open(os.path.join(
+      one["output_path"], "evals", "full_eval", "2",
+      "voxel_metrics.csv")) as g:
+    csv_two, csv_one = f.read(), g.read()
+  if csv_two != csv_one:
+    raise AssertionError(f"the eval's CSV on 2 ranks:\n{csv_two}\ndiffers "
+                         f"from one process's:\n{csv_one}")
+  summary_tiles = sorted(f for f in os.listdir(
+      os.path.join(out, "tb", "full_eval")) if f.startswith("rec_"))
+  eval_tiles = sorted(f for f in os.listdir(os.path.dirname(eval_csv))
+                      if f.startswith("img_"))
+  if (summary_tiles != [f"rec_{i}_2.png" for i in range(2)]
+      or len(eval_tiles) != 2):
+    raise AssertionError(f"summary tiles {summary_tiles}, eval tiles "
+                         f"{eval_tiles}: expected one from each rank")
+
+  start = time.perf_counter()
+  second = run_dist_workers(torch, "pipeline", "pipeline2", root, [path, 6])
+  second_s = time.perf_counter() - start
+  for rank in range(DIST_WORLD):
+    epoch0, epoch1 = (shard_scenes(full, rank, e) for e in (0, 1))
+    want = [[s] for s in epoch0 + epoch1[:1]]
+    got = first[rank]["batches"] + second[rank]["batches"]
+    if got != want:
+      raise AssertionError(f"rank {rank} trained on {got}, its shards in "
+                           f"order are {want}")
+    launches = first[rank]["launches"] + second[rank]["launches"]
+    if set(launches) != {(4, 4, 1, 1, 1)} or len(launches) != 3:
+      raise AssertionError(f"rank {rank}'s launches per step {launches}")
+  if not (first[1]["saves"] == second[1]["saves"] == []
+          and first[0]["saves"] == [0, 2] and second[0]["saves"] == [6]):
+    raise AssertionError(f"checkpoints saved by rank 0: {first[0]['saves']}"
+                         f", {second[0]['saves']}; by rank 1: "
+                         f"{first[1]['saves']}, {second[1]['saves']}")
+  for run in (first, second):
+    if run[0]["params_digest"] != run[1]["params_digest"]:
+      raise AssertionError("the ranks' weights differ")
+    if [r["fill_rounds"] for r in run] != [6, 6]:
+      raise AssertionError("the static fill is off under 2 processes")
+  log(f"dist (c) TrainPipeline on 2 gloo ranks on cuda:0 at "
+      f"{DIST_RES[0]}³ in bf16: batches {[r['batches'] for r in first]} "
+      f"then, resumed, {[r['batches'] for r in second]} (each rank's shard "
+      f"in order); the eval over {DIST_SCENES} scenes (3 and 2) equal to one "
+      f"process's CSV (mean IoU {single_miou:.6f}); summary tiles "
+      f"{summary_tiles}; checkpoints by rank 0 only at 0, 2, 6; weights "
+      f"equal; static fill 6; launches per step (4, 4, 1, 1, 1); runs "
+      f"{first_s:.1f} s and {second_s:.1f} s")
+  cli = dist_cli(manifest, meshes_dir, root)
+  return {"first_s": first_s, "second_s": second_s,
+          "eval_miou": single_miou, "summary_tiles": summary_tiles,
+          "batches": [first[r]["batches"] + second[r]["batches"]
+                      for r in range(DIST_WORLD)],
+          "launches": first[0]["launches"][0], "cli": cli}
+
+
+def dist_cli(manifest, meshes_dir, root):
+  """The train CLI as a user starts it on N cards, here 1: cli.launch
+  around torchrun --standalone around cli.train --multihost (NCCL), 4
+  steps, then the same command resumes for 2 more (no recurrent eval:
+  dist_pipeline ran one)."""
+  full = dist_train_config(manifest, meshes_dir, root, "dist_cli")
+  full["eval"] = []  # (c) ran the recurrent eval
+  path = os.path.join(root, "dist_cli.json")
+  with open(path, "w") as f:
+    json.dump(full, f)
+  out = full["output_path"]
+  seconds = []
+  for max_steps in (4, 6):
+    command = [sys.executable, "-m", "corenet_tpu_torch.cli.launch",
+               "--num_retries=0", "--", sys.executable, "-m",
+               "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+               "-m", "corenet_tpu_torch.cli.train", "--multihost",
+               f"--config_path={path}", f"--max_steps={max_steps}"]
+    start = time.perf_counter()
+    proc = subprocess.run(command, capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT_S)
+    seconds.append(time.perf_counter() - start)
+    if proc.returncode != 0:
+      raise AssertionError(f"{' '.join(command)} exited with "
+                           f"{proc.returncode}:\n{proc.stderr[-6000:]}")
+
+  def listing(tier):
+    return sorted(os.listdir(os.path.join(out, "cpt", tier)))
+
+  with open(os.path.join(out, "logs", "worker_0.log")) as f:
+    log_text = f.read()
+  with open(os.path.join(out, "tb", "train", "scalars.jsonl")) as f:
+    losses = [(r["step"], r["value"]) for r in map(json.loads, f)
+              if r["tag"] == "loss"]
+  if (listing("temp") != ["state_000000000.cpt"]
+      or listing("persistent") != ["state_000000004.cpt",
+                                   "state_000000006.cpt"]
+      or [s for s, _ in losses] != [2, 4, 6]
+      or not all(math.isfinite(v) for _, v in losses)
+      or " W:0 " not in log_text or "Loaded checkpoint" not in log_text):
+    raise AssertionError(f"the CLI under torchrun wrote temp "
+                         f"{listing('temp')}, persistent "
+                         f"{listing('persistent')}, losses {losses}")
+  log(f"dist (c) cli.launch -- torchrun --standalone --nproc_per_node=1 -m "
+      f"corenet_tpu_torch.cli.train --multihost (NCCL, world 1): 4 steps "
+      f"in {seconds[0]:.1f} s, a resume to 6 in {seconds[1]:.1f} s; "
+      f"checkpoints temp (0), persistent (4, 6); losses {losses}; "
+      "logs/worker_0.log")
+  return {"seconds": seconds, "losses": losses}
+
+
+def dist_worker(argv) -> int:
+  """`chip_smoke.py --dist-worker TASK TAG RANK WORLD ROOT ARGS...`: one
+  rank of phase 13 (b) or (c), joined over gloo on this process's card
+  (cuda:LOCAL_RANK); its result goes to ROOT/TAG_rankRANK.pt."""
+  import torch
+  from corenet_tpu_torch.ops import block_scatter as scatter
+  from corenet_tpu_torch.ops import fgbg_loss as fgbg
+  from corenet_tpu_torch.ops import phased_gt as phased
+  from corenet_tpu_torch.ops import skip_gather as op
+  from corenet_tpu_torch.parallel import mesh
+  task, tag, rank, world, root = argv[:5]
+  rank, world = int(rank), int(world)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  dev = mesh.initialize(backend="gloo", init_method="file://" + os.path.join(
+      root, f"{tag}_store"), rank=rank, world_size=world, device="cuda")
+  try:
+    work = {"step": dist_worker_step, "pipeline": dist_worker_pipeline}[task]
+    result = work(torch, (op, fgbg, scatter, phased), rank, dev, root,
+                  *argv[5:])
+    torch.save(result, os.path.join(root, f"{tag}_rank{rank}.pt"))
+    mesh.barrier("done")
+  finally:
+    mesh.shutdown()
+  return 0
+
+
+def dist_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
+               camera, v2x, dev):
+  """Phase 13: data parallelism over processes. Returns the figures."""
+  h7 = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
+  start = time.perf_counter()
+  host, _ = triangle_batch(torch, image, camera, SEED + 41)
+  batch = {k: v.to(dev) for k, v in host.items()}
+  seconds = {}
+  with tempfile.TemporaryDirectory() as root:
+    out = {"a": dist_nccl_world1(torch, mods, CoreNet, h7, batch, dev, root)}
+    del batch
+    torch.cuda.empty_cache()
+    seconds["a"] = time.perf_counter() - start
+    out["c"] = dist_pipeline(torch, mods, dev, root)
+    seconds["c"] = time.perf_counter() - start - sum(seconds.values())
+    out["b"] = dist_gloo_two_ranks(torch, mods, CoreNet, h7, host, v2x, dev,
+                                   root)
+    seconds["b"] = time.perf_counter() - start - sum(seconds.values())
+  out["seconds"] = time.perf_counter() - start
+  out["part_seconds"] = seconds
+  log(f"dist phase: {out['seconds']:.1f} s (" + ", ".join(
+      f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
+  return out
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -3119,6 +3969,11 @@ def main() -> int:
   # 12. Packed (space-to-depth) execution against the fine decoder.
   packed = packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
                         image, camera, v2x, offsets, dev)
+  torch.cuda.empty_cache()
+
+  # 13. Data parallelism over processes: NCCL at world 1, 2 gloo ranks.
+  dist = dist_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
+                    image, camera, v2x, dev)
 
   # Launches per path, each counted from zero just before the path ran:
   # one serving forward, one training step, one eval run of 3 batches, one
@@ -3140,7 +3995,14 @@ def main() -> int:
             f"h7 train CLI eval, {-(-EVAL_SCENES // BATCH)} batches":
                 train_cli_figures["eval_launches"][i],
             "h7 train packed bf16 (GT in step), 1 step":
-                packed["train"]["packed pfs 5, bfloat16"]["launches"][i]}
+                packed["train"]["packed pfs 5, bfloat16"]["launches"][i],
+            "h7 train packed bf16 in an NCCL group of one, 1 step":
+                dist["a"]["launches"][i],
+            **{f"h7 train packed {name} on 2 gloo ranks, rank {rank}, 1 "
+               f"step": dist["b"][f"{name} split"]["launches"][rank][i]
+               for name, _ in DIST_DTYPES for rank in range(DIST_WORLD)},
+            "TrainPipeline on 2 gloo ranks at 32³, rank 0, 1 step":
+                dist["c"]["launches"][i]}
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -3267,6 +4129,7 @@ def main() -> int:
   entry["train_bf16"] = bf16
   entry["train_cli"] = {k: v for k, v in train_cli_figures.items()
                         if k != "losses"}
+  entry["distributed"] = dist
   log(f"h7 scenes/s {h7_serve['scenes_per_s']:.3f}; y1 scenes/s "
       f"{y1_serve['scenes_per_s']:.3f} (median of {SERVE_RUNS} forwards); h7 "
       f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
@@ -3290,4 +4153,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--dist-worker"]:
+    sys.exit(dist_worker(sys.argv[2:]))
   sys.exit(main())

@@ -29,11 +29,14 @@ counterpart is the file of the same path there:
   viz/       cameras, isosurfaces, artifacts and tiles on the host; the
              mesh rasterizer and voxel raycaster as tensor code on the
              device
-  cli/       the train, eval and demo entry points (python -m ...) and
-             the encoder .npz reader
+  parallel/  data parallelism over processes: the process group, the
+             differentiable all-reduce, gradient averaging, host
+             reductions over gloo
+  cli/       the train, eval and demo entry points (python -m ...), the
+             retry launcher and the encoder .npz reader
   utils/     rounding and tiling helpers, local + gs:// file I/O, flags,
              summaries (JSONL, TensorBoard when it imports), PNG bytes,
-             the device check
+             the device check, rank-tagged logs and progress
 
 Ported so far: the serving path; the training step, on host ground truth
 or on ground truth voxelized in the step (the blocked rasterizer with the
@@ -43,8 +46,11 @@ configuration, ray parity); the eval pipeline from a dataset manifest to
 through the eval and demo CLIs; training through `TrainPipeline` and the
 train CLI; the decoder fine or packed (`packed_decoder`, the JAX
 package's space-to-depth execution) in each. float32 or bf16 compute
-(`compute_dtype`), one process. Public functions keep the JAX package's
-channel-last layouts.
+(`compute_dtype`). Training and evaluation data parallel over processes,
+one per device (`parallel/`, torch.distributed under torchrun: global
+BatchRenorm statistics and loss, averaged gradients, sharded loaders,
+rank-0 checkpoints, cross-rank eval metrics). Public functions keep the
+JAX package's channel-last layouts.
 Nothing here imports JAX, corenet_tpu, pandas, msgpack or tensorboard
 at import time; json5, PIL (image decoding) and tensorboard are
 optional.

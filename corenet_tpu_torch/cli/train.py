@@ -13,10 +13,19 @@ Usage:
       [-D key=value ...] [--set path=json ...] [-jq program ...] \\
       [--max_steps=N] [--device=cpu]
 
-Not ported yet, each refused with its slice: --multihost and --space > 1
-(slice 7), --gt_mode=host (slice 8b). --compilation_cache_dir is XLA's
-and has no effect here. The recurrent evals decode with the fine decoder
-whatever --decoder_execution trains (train/pipeline.py).
+On N cards of one machine, one process per card (the configuration's
+batch size is per process), under the retry supervisor if wanted:
+  python -m corenet_tpu_torch.cli.launch --num_retries=3 -- \\
+      python -m torch.distributed.run --standalone --nproc_per_node=N \\
+      -m corenet_tpu_torch.cli.train --multihost --config_path=cfg.json5
+--multihost joins the process group from torchrun's environment
+(parallel/mesh.py: NCCL on cards, gloo with --device=cpu), trains on
+cuda:LOCAL_RANK, and logs each rank to <output_path>/logs/.
+
+Not ported yet, each refused with its slice: --space > 1 (slice 7b),
+--gt_mode=host (slice 8b). --compilation_cache_dir is XLA's and has no
+effect here. The recurrent evals decode with the fine decoder whatever
+--decoder_execution trains (train/pipeline.py).
 """
 
 from __future__ import annotations
@@ -28,8 +37,9 @@ from typing import List
 from corenet_tpu_torch.config import TrainPipeline as TrainPipelineConfig
 from corenet_tpu_torch.config import (
     config_to_dict, load_config_file, parse_template_mapping)
+from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.train.pipeline import RecurrentEvals, TrainPipeline
-from corenet_tpu_torch.utils import flags
+from corenet_tpu_torch.utils import flags, ui
 from corenet_tpu_torch.utils.device import checked_device
 
 log = logging.getLogger(__name__)
@@ -50,9 +60,10 @@ class ProgramArgs:
   max_steps: int = flags.flag(
       "Overrides config max_steps when >= 0", default=-1)
   multihost: bool = flags.flag(
-      "More than one process; not ported yet (slice 7)", default=False)
+      "Join the process group from torchrun's environment: one process "
+      "per device, data parallel", default=False)
   space: int = flags.flag(
-      "Size of the 'space' mesh axis; only 1 is ported (slice 7 brings "
+      "Size of the 'space' mesh axis; only 1 is ported (slice 7b brings "
       "more)", default=1)
   gt_mode: str = flags.flag(
       "GT generation: 'device' (in the step); 'host' is not ported yet "
@@ -99,9 +110,9 @@ def main(argv=None) -> TrainPipeline:
   if args.compilation_cache_dir:
     log.info("--compilation_cache_dir=%s has no effect: it is XLA's",
              args.compilation_cache_dir)
-  if args.multihost or args.space > 1:
-    raise NotImplementedError("--multihost and --space > 1 (more than one "
-                              "process or device) are slice 7 of the port")
+  if args.space > 1:
+    raise NotImplementedError("--space > 1 (spatial partitioning of the "
+                              "decoder) is slice 7b of the port")
   if args.phase_loss not in ("auto", "on", "off"):
     raise ValueError(f"--phase_loss must be auto, on or off, got "
                      f"{args.phase_loss!r}")
@@ -111,6 +122,17 @@ def main(argv=None) -> TrainPipeline:
       jq_transforms=args.jq_transform, set_overrides=args.set,
       template_overrides=parse_template_mapping(args.template_value))
 
+  if not args.multihost:
+    return _train(args, config, args.device)
+  device = mesh.initialize(device=args.device)
+  try:
+    ui.initialize_logging(config.output_path)
+    return _train(args, config, device)
+  finally:
+    mesh.shutdown()
+
+
+def _train(args: ProgramArgs, config, device) -> TrainPipeline:
   pipeline = TrainPipeline(
       config.train, config.output_path,
       extra_metadata={"train_config": config_to_dict(config.train),
@@ -121,7 +143,7 @@ def main(argv=None) -> TrainPipeline:
       phase_loss={"auto": None, "on": True, "off": False}[args.phase_loss],
       renorm_ramp_start=(None if args.renorm_ramp_start < 0
                          else args.renorm_ramp_start),
-      device=args.device)
+      device=device)
   evals = RecurrentEvals(config.eval, config.output_path)
   max_steps = args.max_steps if args.max_steps >= 0 else None
   pipeline.run(recurrent_evals=evals, max_steps=max_steps,

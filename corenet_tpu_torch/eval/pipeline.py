@@ -10,8 +10,15 @@ summaries are written, and `run_eval` returns the mean IoU.
 Batches are padded to the configured batch size, with a validity mask for
 the last one. The first `num_qualitative_results` scenes are also rendered
 (eval/qualitative.py) into `img_*.png` tiles beside the CSV: only those
-scenes' PMFs and grids are copied to the host. One process evaluates the
-whole dataset for now.
+scenes' PMFs and grids are copied to the host.
+
+Under a process group (parallel/mesh.py) each rank evaluates its
+contiguous shard of the dataset (`shard_range`), with its own number of
+batches and no collective inside the batch loop, and reports its progress
+to rank 0 (`WorkerProgress`); after the loop every rank joins the
+reduction of the confusion matrix and the gather of the summary tiles,
+and rank 0 writes the CSV and the scalars. Each rank writes the tiles of
+its own first scenes.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ from corenet_tpu_torch.data.loader import DataLoader
 from corenet_tpu_torch.data.manager import DatasetManager
 from corenet_tpu_torch.eval.qualitative import QualitativeResults
 from corenet_tpu_torch.eval.results import QuantitativeResults
+from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.train import gt as gt_lib
 from corenet_tpu_torch.utils import fs
 from corenet_tpu_torch.utils.device import checked_device
+from corenet_tpu_torch.utils.ui import WorkerProgress
 
 log = logging.getLogger(__name__)
 
@@ -92,7 +101,8 @@ class EvalPipeline:
     dataset = self.dataset_manager.create_dataset(local_seed=global_step)
     if max_scenes is not None:
       dataset = dataset[:max_scenes]
-    lo, hi = shard_range(len(dataset), 1, 0)
+    lo, hi = shard_range(len(dataset), mesh.process_count(),
+                         mesh.process_index())
     shard = dataset[lo:hi]
     log.info("Eval '%s' @ step %d: %d scenes (shard %d-%d of %d)",
              self.config.name, global_step, len(shard), lo, hi, len(dataset))
@@ -116,25 +126,32 @@ class EvalPipeline:
         prefetch_factor=dl_cfg.prefetch_factor,
         max_edge_view=max_edge_view,
         worker_processes=None if dl_cfg.worker_processes else False)
+    progress = None
+    if mesh.process_count() > 1:
+      progress = WorkerProgress(out_dir, desc=f"eval:{self.config.name}",
+                                interval_sec=30.0)
     self._run_batches(loader, self._cached_gt_fn, task_type, resolution,
-                      quantitative, qualitative)
+                      quantitative, qualitative, progress)
 
+    # Collectives: every rank gathers the first tiles to rank 0's summary
+    # writer and sums the confusion matrices.
     if qualitative is not None:
       qualitative.write_summaries(global_step)
     quantitative.compute_metrics()
-    if self.write_results:
+    rank0 = mesh.process_index() == 0
+    if rank0 and self.write_results:
       quantitative.write_csv(fs.join(out_dir, "voxel_metrics.csv"))
       log.info("Eval '%s' mIoU=%.4f", self.config.name,
                quantitative.get_mean_iou())
-    if self.summary_writer is not None:
+    if rank0 and self.summary_writer is not None:
       for name, value in quantitative.scalar_summaries().items():
         self.summary_writer.add_scalar(name, value, global_step)
       self.summary_writer.flush()
     return quantitative.get_mean_iou()
 
   def _run_batches(self, loader, gt_fn, task_type, resolution, quantitative,
-                   qualitative=None):
-    for hb, valid in loader:
+                   qualitative=None, progress=None):
+    for i, (hb, valid) in enumerate(loader):
       inputs = {k: torch.from_numpy(v).to(self.device)
                 for k, v in hb.step_inputs(task_type).items()}
       grid, v2x = gt_fn(*(inputs[k] for k in GT_KEYS))
@@ -142,6 +159,8 @@ class EvalPipeline:
                               inputs["grid_offset"], resolution)
       pmf = torch.as_tensor(pmf, device=self.device)
       quantitative.add_batch(pmf, grid, hb.mesh_labels[:, 0], valid)
+      if progress is not None:
+        progress.report(i + 1, len(loader))
       if qualitative is not None and qualitative.want_more():
         self._add_qualitative(qualitative, hb, valid, pmf, grid, resolution)
 

@@ -7,8 +7,9 @@ GT voxel grid | GT meshes] under the default and four tetrahedron cameras
 and write `img_{scene_id}.png` (utils/png.py) under
 <output>/<eval_name>/<step>/; the first few tiles also go to the summary
 writer. Extraction (argmax, isosurfaces) runs on the host; the renderers
-run on `device`. One process: the JAX package's cross-host gather of the
-summary tiles comes with the port's distributed slice.
+run on `device`. Under a process group each rank renders its own shard's
+first scenes, and `write_summaries` gathers the ranks' summary tiles to
+rank 0's writer, as the JAX package gathers them across hosts.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.utils import fs
 from corenet_tpu_torch.utils.png import encode_png
 from corenet_tpu_torch.viz import artifacts as art
@@ -102,10 +105,28 @@ class QualitativeResults:
     self.rendered += 1
 
   def write_summaries(self, global_step: int = 0) -> None:
-    """Writes the first-K tiles to the summary writer (one process)."""
-    tiles = self._summary_tiles[:self.num_results_in_summary]
+    """Writes the first K tiles to the summary writer. Under a process
+    group it is a collective, which every rank calls, with or without a
+    writer: the ranks' tiles, (K, 5H, 5W, 3) uint8 with their counts, are
+    gathered, and the writer takes the first K in rank order."""
+    k = self.num_results_in_summary
+    tiles = self._summary_tiles[:k]
     self._summary_tiles = []
+    if k <= 0:
+      return
+    if mesh.is_initialized():
+      h, w = self.image_size
+      buf = torch.zeros((k, 5 * h, 5 * w, 3), dtype=torch.uint8)
+      for i, tile in enumerate(tiles):
+        if tile.shape != (5 * h, 5 * w, 3):
+          raise ValueError(f"a tile of {tile.shape}, expected "
+                           f"{(5 * h, 5 * w, 3)}")
+        buf[i] = torch.from_numpy(tile)
+      counts = mesh.host_all_gather(torch.tensor([len(tiles)]))
+      tiles = [t[i].numpy()
+               for t, n in zip(mesh.host_all_gather(buf), counts)
+               for i in range(int(n))]
     if self.summary_writer is None:
       return
-    for i, tile in enumerate(tiles):
+    for i, tile in enumerate(tiles[:k]):
       self.summary_writer.add_image(f"rec_{i}", tile, global_step)

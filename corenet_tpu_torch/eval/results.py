@@ -11,7 +11,8 @@ numbers. Label extraction for FG_BG multiplies both prediction and GT by
 the scene's object label.
 
 The per-batch confusion matrix is counted on the device and accumulated
-in int64 on the host.
+in int64 on the host; under a process group the ranks' matrices are
+summed before the metrics.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from corenet_tpu_torch.data.dataset import VOID_LABEL_NAME
 from corenet_tpu_torch.eval import metrics as vm
+from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.utils import fs
 
 GLOBAL_CLASS_NAME = "__global__"
@@ -133,9 +135,12 @@ class QuantitativeResults:
     self.confusion += cm.cpu().numpy()
 
   def reduce_across_hosts(self):
-    """Sums the confusion matrices of all processes. One process for now:
-    nothing to do (the multi-process eval comes with the port's
-    distributed slice)."""
+    """Sums the confusion matrices of all processes (an int64 all-reduce
+    over the host group of parallel/mesh.py; nothing to do without a
+    group). Every rank calls it, each with the confusion of its shard."""
+    if mesh.is_initialized():
+      self.confusion = mesh.host_all_reduce_sum(
+          torch.from_numpy(self.confusion)).numpy()
 
   def compute_metrics(self) -> VoxelMetricsTable:
     self.reduce_across_hosts()

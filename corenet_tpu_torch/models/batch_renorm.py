@@ -20,7 +20,19 @@ where sg stops the gradient, σ = √(var + eps) and σ_B = √(var_B + eps)
 with the biased batch variance. It then updates the running statistics
 with momentum 0.01, "unbiasing" the variance by channels/(channels − 1)
 (the reference model's quirk, kept for its training dynamics), and counts
-the step. Statistics are taken over this process's batch.
+the step.
+
+Statistics are taken over the global batch, as the JAX package takes
+them over its sharded batch: under a process group (parallel/mesh.py)
+each rank reduces its shard to per-channel means, folded when packed,
+and `mesh.mean_over_ranks` averages them over the ranks, an all-reduce
+whose backward carries the gradient across ranks. Float32 makes two
+reduces (the mean, then the variance around it), bf16 one (both shifted
+moments as one [2, C] tensor); so a train-mode layer launches 4 or 2
+all-reduces per step, its backward's included. The mean of per-rank
+means is the global mean only for shards of equal size: each layer
+checks that its count per channel is the same on every rank, once per
+count it sees. Without a group nothing is reduced.
 
 Activations may be float32 or bfloat16. The statistics are float32 either
 way; the elementwise passes run in the input's dtype, with the
@@ -44,6 +56,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from corenet_tpu_torch.parallel import mesh
 
 # Step at which the r/d clips start to open (the reference's 5000).
 # Process-wide, shared by every layer, as in the JAX package; read at each
@@ -78,6 +92,7 @@ class BatchRenorm(nn.Module):
     self.register_buffer("var", torch.ones(num_channels, device=device))
     self.register_buffer("steps",
                          torch.zeros((), dtype=torch.int32, device=device))
+    self._checked_count = None  # the count per channel checked across ranks
 
   @torch.no_grad()
   def reset_parameters(self, generator: Optional[torch.Generator] = None
@@ -127,18 +142,26 @@ class BatchRenorm(nn.Module):
     shape = (1, -1) + (1,) * (x.dim() - 2)
     dims = (0,) + tuple(range(2, x.dim()))
     fold = self._fold
+    if mesh.is_initialized():
+      count = x.numel() // x.shape[1]
+      if count != self._checked_count:
+        mesh.assert_equal_across_ranks(count,
+                                       "BatchRenorm's count per channel")
+        self._checked_count = count
     if x.dtype == torch.bfloat16:
-      shift = self.mean  # no gradient: a buffer
+      shift = self.mean  # no gradient: a buffer; the same on every rank
       xf = x.float() - self._tile(shift).view(shape)
-      m_shift = fold(xf.mean(dim=dims))
+      moments = (fold(xf.mean(dim=dims)),
+                 fold(torch.square(xf).mean(dim=dims)))
+      if mesh.is_initialized():
+        moments = mesh.mean_over_ranks(torch.stack(moments)).unbind()
+      m_shift, mean_square = moments
       b_mean = m_shift + shift
-      b_var = torch.clamp(
-          fold(torch.square(xf).mean(dim=dims)) - torch.square(m_shift),
-          min=0.0)
+      b_var = torch.clamp(mean_square - torch.square(m_shift), min=0.0)
     else:
-      b_mean = fold(x.mean(dim=dims))
-      b_var = fold(torch.square(x - self._tile(b_mean).view(shape)).mean(
-          dim=dims))
+      b_mean = mesh.mean_over_ranks(fold(x.mean(dim=dims)))
+      b_var = mesh.mean_over_ranks(fold(
+          torch.square(x - self._tile(b_mean).view(shape)).mean(dim=dims)))
     b_std = torch.sqrt(b_var + self.eps)
 
     running_std = torch.sqrt(self.var + self.eps)

@@ -13,6 +13,13 @@ viewed as [B, D/2, H/2, (W/2)·8, C]: the losses do not depend on voxel
 order. With two
 classes and no weights, iou_fgbg reduces through ops/fgbg_loss.py (a CUDA
 kernel on the card); everything else is plain tensor code.
+
+Each loss is a function of batch means (the IoU's over scenes, the
+cross-entropy's over voxels). Under a process group (parallel/mesh.py)
+those means are taken over the global batch, the mean of the ranks'
+means of equal shards: every rank returns the loss of the global batch,
+and the products of the SEMANTIC losses multiply global means, as the
+JAX package's losses do over its sharded batch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from corenet_tpu_torch.ops import fgbg_loss
+from corenet_tpu_torch.parallel import mesh
 
 
 def _check(gt_volume, logits, weights):
@@ -40,7 +48,7 @@ def _check(gt_volume, logits, weights):
 def _iou_loss(intersection: torch.Tensor, union: torch.Tensor
               ) -> torch.Tensor:
   iou = intersection / torch.where(union == 0, 1.0, union)
-  return 1.0 - iou.mean()
+  return 1.0 - mesh.mean_over_ranks(iou.mean())
 
 
 def iou_agnostic(gt_volume: torch.Tensor, logits: torch.Tensor,
@@ -95,7 +103,7 @@ def xent(gt_volume: torch.Tensor, logits: torch.Tensor,
                               dim=-1)[..., 0]
   if weights is not None:
     nll = nll * weights
-  return nll.mean()
+  return mesh.mean_over_ranks(nll.mean())
 
 
 def xent_times_iou_agnostic(gt_volume, logits, weights=None):

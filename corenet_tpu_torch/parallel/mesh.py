@@ -1,0 +1,238 @@
+"""Data parallelism over processes with torch.distributed.
+
+Counterpart of corenet_tpu/parallel/mesh.py's 'data' axis. The JAX
+package runs one SPMD program per host over a device mesh, and XLA
+inserts the collectives; here one process drives one device (torchrun
+starts them) and the code that needs a collective calls one:
+
+- BatchRenorm's train-mode statistics and the losses' batch means are
+  means over the global batch (`mean_over_ranks`): each rank reduces its
+  shard, and an all-reduce whose backward is an all-reduce too
+  (`all_reduce_sum`) joins the shards, so every rank computes the global
+  statistics and the global loss, and its backward carries the other
+  ranks' share of every gradient.
+- So every rank's loss is the global loss L, and the ranks' gradients
+  add up to world_size · dL/dθ. `all_reduce_gradients` sums them and
+  divides by the world size: one all-reduce of the flattened gradients
+  after the backward, and every rank takes the same Adam step.
+- Host-side reductions (the eval's confusion matrix, the qualitative
+  tiles, barriers and checks of equal shapes) go over a gloo group of
+  CPU tensors, beside the device group (NCCL on cards): the pairing of
+  NCCL and gloo in the original CoreNet's launcher.
+
+Without a process group every function here is the one-process identity
+(a count of 1, rank 0, no reduction), and callers take their one-process
+path unchanged. With a group, the collectives run even at world size 1,
+so one card runs the code path of N.
+
+There is no 'space' axis: spatial partitioning of the decoder is slice
+7b of the port.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Iterable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+log = logging.getLogger(__name__)
+
+# Collectives launched on device tensors (the step's reduces, their
+# backward, the gradient all-reduce, state broadcasts); read by callers
+# that count them per step.
+collective_count = 0
+
+_host_group = None
+
+
+def initialize(backend: Optional[str] = None,
+               init_method: Optional[str] = None,
+               rank: Optional[int] = None,
+               world_size: Optional[int] = None,
+               device="cuda") -> torch.device:
+  """Joins the process group and returns this process's device.
+
+  Rank, world size and the rendezvous come from torchrun's environment
+  (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT: init_method
+  "env://") unless given. The backend defaults to NCCL for a CUDA device
+  and gloo for the CPU; a CUDA device is `cuda:LOCAL_RANK`, made current
+  before the group forms. A host group of gloo serves the CPU tensors.
+  Every failure raises: no rank goes on alone."""
+  global _host_group
+  if dist.is_initialized():
+    raise RuntimeError("the process group is already initialized")
+  device = local_device(device)
+  if backend is None:
+    backend = "nccl" if device.type == "cuda" else "gloo"
+  if rank is None:
+    rank = int(_environ("RANK"))
+  if world_size is None:
+    world_size = int(_environ("WORLD_SIZE"))
+  if device.type == "cuda":
+    torch.cuda.set_device(device)
+  dist.init_process_group(backend=backend,
+                          init_method=init_method or "env://",
+                          rank=rank, world_size=world_size)
+  _host_group = (dist.group.WORLD if backend == "gloo"
+                 else dist.new_group(backend="gloo"))
+  log.info("process %d of %d on %s (%s; host reductions over gloo)", rank,
+           world_size, device, backend)
+  return device
+
+
+def shutdown() -> None:
+  """Leaves the process group (a no-op without one)."""
+  global _host_group
+  if dist.is_initialized():
+    dist.destroy_process_group()
+  _host_group = None
+
+
+def _environ(name: str) -> str:
+  value = os.environ.get(name)
+  if value is None:
+    raise RuntimeError(f"{name} is not set: start the processes with "
+                       "torchrun, or pass rank and world_size")
+  return value
+
+
+def is_initialized() -> bool:
+  return dist.is_initialized()
+
+
+def process_count() -> int:
+  return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+  return dist.get_rank() if dist.is_initialized() else 0
+
+
+def local_device(device) -> torch.device:
+  """A CUDA device without an index means this process's card,
+  `cuda:LOCAL_RANK` (0 without torchrun), which must exist; any other
+  device is returned as it is."""
+  device = torch.device(device)
+  if device.type != "cuda" or device.index is not None:
+    return device
+  index = int(os.environ.get("LOCAL_RANK", "0"))
+  count = torch.cuda.device_count()
+  if index >= count:
+    raise RuntimeError(f"LOCAL_RANK {index} names cuda:{index}, but this "
+                       f"machine has {count} CUDA device(s)")
+  return torch.device("cuda", index)
+
+
+def host_group():
+  if _host_group is None:
+    raise RuntimeError("no process group: call parallel.mesh.initialize()")
+  return _host_group
+
+
+def barrier(name: str) -> None:
+  """Waits for every process (over the host group); a no-op alone."""
+  if not dist.is_initialized():
+    return
+  log.debug("barrier %s", name)
+  dist.barrier(group=host_group())
+
+
+class _AllReduceSum(torch.autograd.Function):
+  """The sum over ranks; its backward is the sum over ranks of the
+  incoming gradients, the adjoint of the sum of every rank's copy."""
+
+  @staticmethod
+  def forward(ctx, x):
+    return _all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+  @staticmethod
+  def backward(ctx, grad):
+    return _all_reduce(grad.clone(memory_format=torch.contiguous_format))
+
+
+def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+  global collective_count
+  collective_count += 1
+  dist.all_reduce(x)
+  return x
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+  """The sum of `x` over ranks, differentiable; needs a group."""
+  if not dist.is_initialized():
+    raise RuntimeError("no process group: call parallel.mesh.initialize()")
+  return _AllReduceSum.apply(x)
+
+
+def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
+  """The mean over ranks of per-rank means of equal-size shards, which is
+  the mean over the global batch; `x` itself without a group. Dividing by
+  a world size of 1 is exact, so one rank in a group computes what no
+  group does."""
+  if not dist.is_initialized():
+    return x
+  return all_reduce_sum(x) / dist.get_world_size()
+
+
+def all_reduce_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
+  """Averages the parameters' gradients over ranks in place: one
+  all-reduce of the flattened gradients (the ranks' sum is world_size
+  times the global gradient, module docstring). A no-op without a
+  group."""
+  if not dist.is_initialized():
+    return
+  grads = [p.grad for p in parameters if p.grad is not None]
+  for dtype in sorted({g.dtype for g in grads}, key=str):
+    same = [g for g in grads if g.dtype == dtype]
+    flat = _all_reduce(_flatten_dense_tensors(same))
+    flat /= dist.get_world_size()
+    for g, reduced in zip(same, _unflatten_dense_tensors(flat, same)):
+      g.copy_(reduced)
+
+
+@torch.no_grad()
+def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
+  """Overwrites `tensors` in place with rank `src`'s, one broadcast per
+  dtype. A no-op without a group."""
+  global collective_count
+  if not dist.is_initialized():
+    return
+  for dtype in sorted({t.dtype for t in tensors}, key=str):
+    same = [t for t in tensors if t.dtype == dtype]
+    flat = _flatten_dense_tensors(same)
+    collective_count += 1
+    dist.broadcast(flat, src)
+    for t, value in zip(same, _unflatten_dense_tensors(flat, same)):
+      t.copy_(value)
+
+
+def assert_equal_across_ranks(value: int, what: str) -> None:
+  """Raises on every rank unless every rank passes the same integer."""
+  if not dist.is_initialized():
+    return
+  t = torch.tensor([value, -value], dtype=torch.int64)
+  dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group())
+  if int(t[0]) != -int(t[1]):
+    raise RuntimeError(f"{what} differs between ranks: this rank has "
+                       f"{value}, the ranks span {-int(t[1])}..{int(t[0])}")
+
+
+def host_all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+  """The sum over ranks of a CPU tensor, over the host group."""
+  t = t.clone()
+  if dist.is_initialized():
+    dist.all_reduce(t, group=host_group())
+  return t
+
+
+def host_all_gather(t: torch.Tensor) -> List[torch.Tensor]:
+  """Every rank's CPU tensor of one shape, in rank order."""
+  if not dist.is_initialized():
+    return [t]
+  out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+  dist.all_gather(out, t.contiguous(), group=host_group())
+  return out

@@ -1,12 +1,12 @@
 """Training pipeline: state creation or resume, the step loop, and the
 checkpoint, summary, fill-audit and recurrent-eval cadences.
 
-Counterpart of corenet_tpu/train/pipeline.py for one process on one
-device. `TrainPipeline` creates the state (a seeded CoreNet, optionally
-the imported ResNet-50 encoder, a fresh Adam) and saves it, or resumes
-from the newest `.cpt` under `<output_path>/cpt/`; each epoch's dataset
-is re-derived from the global step, so a resumed run continues the JAX
-package's data order (and, where the batch size does not divide the
+Counterpart of corenet_tpu/train/pipeline.py, one process per device.
+`TrainPipeline` creates the state (a seeded CoreNet, optionally the
+imported ResNet-50 encoder, a fresh Adam) and saves it, or resumes from
+the newest `.cpt` under `<output_path>/cpt/`; each epoch's dataset is
+re-derived from the global step, so a resumed run continues the JAX
+package's data order (and, where the global batch does not divide the
 dataset, goes on to the next epoch where the JAX package stops:
 `_epoch_loader`); `run` steps until `max_steps`, writing temp and
 persistent checkpoints, the loss to `<output_path>/tb/train/` and the
@@ -16,9 +16,18 @@ configuration's evals at their schedules through one cached
 tensors, in the training dtype and, unless it is asked for the packed
 decoder, with the fine one.
 
+Under a process group (parallel/mesh.py; torchrun and the train CLI's
+--multihost) the pipeline is the JAX package's multi-host one: the batch
+size of the configuration is per process, and the global batch is that
+times the process count; each rank steps on its contiguous shard of each
+epoch; rank 0 creates and saves the first state and every rank then
+reads it; rank 0 alone writes checkpoints and summaries; the raster
+ground truth takes a static fill; rank 0 logs every worker's progress.
+Every rank runs the recurrent evals, each on its shard of the eval set.
+
 Not ported here, each refused with the slice that brings it: host ground
-truth (`gt_mode="host"`, slice 8b), meshes and more than one process
-(slice 7).
+truth (`gt_mode="host"`, slice 8b), a device mesh with a 'space' axis
+(slice 7b).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
 from corenet_tpu_torch.models.decoder import (
     packed_eligible, require_packed_eligible)
+from corenet_tpu_torch.parallel import mesh as mesh_lib
 from corenet_tpu_torch.train import checkpoint as cpt_lib
 from corenet_tpu_torch.train import gt as gt_lib
 from corenet_tpu_torch.train import state as state_lib
@@ -48,14 +58,18 @@ from corenet_tpu_torch.train.step import make_train_step
 from corenet_tpu_torch.utils import fs, misc
 from corenet_tpu_torch.utils.device import checked_device
 from corenet_tpu_torch.utils.summary import SummaryWriter
+from corenet_tpu_torch.utils.ui import WorkerProgress
 from corenet_tpu_torch.voxel.fill import static_rounds_converged
 
 log = logging.getLogger(__name__)
 
 # Static interior-fill rounds that the JAX package uses under more than
 # one process, where an adaptive fixpoint would desync the hosts. Real
-# meshes converge in 2-3 rounds. One process takes the adaptive fill
-# unless the configuration asks for a static count.
+# meshes converge in 2-3 rounds. The port takes it under more than one
+# process too, so that its ground truth is the JAX package's (here each
+# rank voxelizes alone, and no collective would desync); one process
+# takes the adaptive fill unless the configuration asks for a static
+# count.
 FILL_ROUNDS_STATIC = 6
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
@@ -105,11 +119,16 @@ class TrainPipeline:
       last_upscale_factor 2.
     renorm_ramp_start: the step at which BatchRenorm's r/d clips open
       (None keeps 5000).
-    device: where the model trains; 'cuda' needs a card.
+    device: where the model trains; 'cuda' needs a card, and means this
+      process's, cuda:LOCAL_RANK.
+    mesh: the JAX package's device mesh. The port's 'data' axis is the
+      process group (parallel/mesh.py); a mesh, which would bring the
+      'space' axis, is refused.
     """
     if mesh is not None:
-      raise NotImplementedError("a device mesh (more than one device or "
-                                "process) is slice 7 of the port")
+      raise NotImplementedError(
+          "a device mesh with a 'space' axis is slice 7b of the port; data "
+          "parallelism is the process group (parallel.mesh.initialize)")
     if gt_mode not in ("device", "host"):
       raise ValueError(f"unknown gt_mode {gt_mode!r}")
     if gt_mode == "host":
@@ -122,7 +141,7 @@ class TrainPipeline:
       raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     if decoder_execution not in ("auto", "fine", "packed"):
       raise ValueError(f"unknown decoder_execution {decoder_execution!r}")
-    self.device = checked_device(device)
+    self.device = mesh_lib.local_device(checked_device(device))
     self.config = config
     self.output_path = output_path
     self.extra_metadata = extra_metadata or {}
@@ -159,14 +178,18 @@ class TrainPipeline:
                          packed_decoder=packed)
 
     irm = vc.voxelization_image_resolution_multiplier
-    # A static fill count only when the configuration asks for one (one
-    # process: the adaptive fixpoint is exact); the audit then checks it.
+    # A static fill count when the configuration asks for one, or under
+    # more than one process, as in the JAX package; the audit then checks
+    # it. One process otherwise takes the exact adaptive fixpoint.
     self.fill_rounds = vc.voxelization_fill_rounds or None
+    if (self.fill_rounds is None and mesh_lib.process_count() > 1
+        and gt_algorithm == "raster"):
+      self.fill_rounds = FILL_ROUNDS_STATIC
     if self.fill_rounds is not None and gt_algorithm == "raster":
       log.info("raster GT uses a static %d-round interior fill (config "
-               "voxelization_fill_rounds); the fill audit runs every %d "
-               "steps and once at the first step", self.fill_rounds,
-               config.fill_audit_interval)
+               "voxelization_fill_rounds, or the multi-process default); "
+               "the fill audit runs every %d steps and once at the first "
+               "step", self.fill_rounds, config.fill_audit_interval)
     self.voxelization_kwargs = dict(
         sub_grid_sampling=vc.sub_grid_sampling,
         image_resolution_multiplier=irm,
@@ -183,7 +206,9 @@ class TrainPipeline:
     self._last_batch = None
     self._fill_audit_count = 0
     self.cpt_manager = cpt_lib.CheckpointManager(fs.join(output_path, "cpt"))
-    self.tb_writer = SummaryWriter(fs.join(output_path, "tb", "train"))
+    self.rank0 = mesh_lib.process_index() == 0
+    self.tb_writer = (SummaryWriter(fs.join(output_path, "tb", "train"))
+                      if self.rank0 else None)
     self.state: Optional[state_lib.TrainState] = None
     self.train_step = None
 
@@ -191,7 +216,8 @@ class TrainPipeline:
   def create_or_load_state(self) -> state_lib.TrainState:
     """The newest checkpoint's state; without one, a fresh state (weights
     from seed 0, the imported encoder if configured, step 0), saved
-    first."""
+    first. Under more than one process rank 0 saves the fresh state, and
+    after a barrier every rank reads the newest checkpoint."""
     if self.state is None:
       self.model.reset_parameters(torch.Generator().manual_seed(0))
       self._load_encoder_weights()
@@ -202,10 +228,13 @@ class TrainPipeline:
           self.model, self.state.optimizer, self.task_type, self.resolution,
           voxelization_kwargs=dict(self.voxelization_kwargs,
                                    algorithm=self.gt_algorithm))
-    if not self.cpt_manager.list_checkpoints():
+    single = mesh_lib.process_count() == 1
+    if self.rank0 and not self.cpt_manager.list_checkpoints():
       log.info("No checkpoint found; creating initial state")
       self.cpt_manager.save_state(self.state, self._extra_metadata())
-      return self.state
+      if single:
+        return self.state
+    mesh_lib.barrier("initial-checkpoint")
     state, _, path = self.cpt_manager.read_last_checkpoint(self.state)
     self.state = state
     log.info("Loaded checkpoint %s (step %d)", path, state.global_step)
@@ -231,27 +260,44 @@ class TrainPipeline:
 
   # ------------------------------------------------------------- loop ----
   def _epoch_loader(self, start_step: int) -> DataLoader:
-    """The batches from global step `start_step` to the end of its epoch.
+    """This rank's batches from global step `start_step` to the end of
+    its epoch.
 
-    An epoch is the examples that full batches cover: the dataset's
-    length rounded down to a multiple of the batch size. Where the batch
-    size divides the length, (epoch, offset) = divmod(start_step, length)
-    as in the JAX package; otherwise the JAX package derives the epoch
-    from the whole length, and the step that ends the first epoch finds
-    fewer examples than a batch left (it raises "Empty training
-    dataset"). Here the next epoch starts there instead."""
+    An epoch is the examples that full global batches cover: the
+    dataset's length rounded down to a multiple of the global batch, so
+    (epoch, offset) = divmod(start_step, covered). Each rank takes its
+    contiguous, wrap-padded shard of the epoch's dataset, as the JAX
+    pipeline shards it (`distributed_indices`), skips the batches the
+    epoch's first offset / global_batch steps took, and ends where the
+    epoch does. From an epoch's start these are the JAX pipeline's
+    batches, all of them where the global batch divides the length, and
+    with one process its batches from any step. Where the global batch
+    does not divide the length the JAX pipeline derives the epoch from
+    the whole length, and the step that ends the first epoch finds fewer
+    examples than a batch left (it raises "Empty training dataset"):
+    here the next epoch starts there instead. Under more than one
+    process the JAX pipeline resumes mid-epoch by sharding the epoch's
+    remaining examples anew, which repeats some and skips others: here a
+    resumed rank goes on with its own shard's next batch, the batch an
+    uninterrupted run takes."""
     dl_cfg = self.config.data.data_loader
-    covered = (self.dataset_manager.epoch_len // dl_cfg.batch_size
-               * dl_cfg.batch_size)
+    # The configuration's batch size is per process (the reference's
+    # convention); the global step advances by the global batch.
+    batch, world = dl_cfg.batch_size, mesh_lib.process_count()
+    global_batch = batch * world
+    covered = (self.dataset_manager.epoch_len // global_batch
+               * global_batch)
     if covered == 0:
       raise RuntimeError(f"the training dataset holds "
                          f"{self.dataset_manager.epoch_len} examples, fewer "
-                         f"than a batch of {dl_cfg.batch_size}")
+                         f"than a global batch of {global_batch}")
     epoch, offset = divmod(start_step, covered)
-    dataset = self.dataset_manager.create_dataset(local_seed=epoch)[offset:]
-    # The training shard of one process: every example, wrap-padded.
-    shard = dataset.select(distributed_indices(
-        len(dataset), 1, 0, pad_data=True, shuffle=False))
+    dataset = self.dataset_manager.create_dataset(local_seed=epoch)
+    indices = distributed_indices(len(dataset), world,
+                                  mesh_lib.process_index(), pad_data=True,
+                                  shuffle=False)
+    shard = dataset.select(
+        indices[offset // global_batch * batch:covered // world])
     return DataLoader(
         shard, batch_size=dl_cfg.batch_size,
         num_workers=dl_cfg.num_data_workers,
@@ -333,28 +379,35 @@ class TrainPipeline:
     limit = max_steps if max_steps is not None else config.max_steps
     profiler = _StepProfiler(profile_dir, profile_start, profile_steps,
                              self.device)
+    # Rank 0's view of every worker's step.
+    worker_progress = (WorkerProgress(self.output_path, desc="train",
+                                      interval_sec=60.0)
+                       if mesh_lib.process_count() > 1 else None)
 
     prev_step = self.state.global_step
     try:
       for step, metrics in self.train_steps():
         profiler.tick()
-        if ev_tb.trigger(prev_step, step):
+        if ev_tb.trigger(prev_step, step) and self.tb_writer is not None:
           loss = float(metrics["loss"])
           self.tb_writer.add_scalar("loss", loss, step)
           self.tb_writer.flush()
           log.info("step %d loss %.5f", step, loss)
+        if worker_progress is not None:
+          worker_progress.report(step, limit if limit >= 0 else None)
 
-        if ev_persistent.trigger(prev_step, step):
-          self.cpt_manager.save_state(self.state, self._extra_metadata(),
-                                      persistent=True)
-        elif ev_temp.trigger(prev_step, step):
-          self.cpt_manager.save_state(self.state, self._extra_metadata())
+        if self.rank0:
+          if ev_persistent.trigger(prev_step, step):
+            self.cpt_manager.save_state(self.state, self._extra_metadata(),
+                                        persistent=True)
+          elif ev_temp.trigger(prev_step, step):
+            self.cpt_manager.save_state(self.state, self._extra_metadata())
 
         if (self.fill_rounds is not None
             and (not fill_audited_once or ev_fill.trigger(prev_step, step))):
           ok = self.audit_static_fill()
           fill_audited_once = fill_audited_once or ok is not None
-          if ok is not None:
+          if ok is not None and self.tb_writer is not None:
             self.tb_writer.add_scalar("gt/fill_audit_ok", float(ok), step)
 
         if recurrent_evals is not None:
@@ -362,13 +415,15 @@ class TrainPipeline:
 
         prev_step = step
         if 0 <= limit <= step:
-          self.cpt_manager.save_state(self.state, self._extra_metadata(),
-                                      persistent=True)
+          if self.rank0:
+            self.cpt_manager.save_state(self.state, self._extra_metadata(),
+                                        persistent=True)
           log.info("Reached max_steps=%d; stopping", limit)
           return
     finally:
       profiler.close()
-      self.tb_writer.flush()
+      if self.tb_writer is not None:
+        self.tb_writer.flush()
 
 
 class _StepProfiler:
@@ -443,7 +498,7 @@ class RecurrentEvals:
       if not force and (event is None or
                         not event.trigger(prev_step, next_step)):
         continue
-      if rec.persistent_checkpoint:
+      if rec.persistent_checkpoint and pipeline.rank0:
         pipeline.cpt_manager.save_state(
             pipeline.state, pipeline._extra_metadata(), persistent=True)
       self.run_single(pipeline, rec.config, next_step)
@@ -459,15 +514,16 @@ class RecurrentEvals:
     inference = self._inference_factory(pipeline.state.model.state_dict())
 
     if eval_config.name not in self._pipelines:
-      writer = SummaryWriter(fs.join(pipeline.output_path, "tb",
-                                     eval_config.name))
+      writer = (SummaryWriter(fs.join(pipeline.output_path, "tb",
+                                      eval_config.name))
+                if pipeline.rank0 else None)
       self._pipelines[eval_config.name] = EvalPipeline(
           eval_config, fs.join(pipeline.output_path, "evals"), inference,
           summary_writer=writer, device=pipeline.device)
     ep = self._pipelines[eval_config.name]
     ep.inference_fn = inference
     miou = ep.run_eval(step)
-    if miou is not None:
+    if miou is not None and pipeline.tb_writer is not None:
       pipeline.tb_writer.add_scalar(f"eval/{eval_config.name}/mIoU", miou,
                                     step)
       pipeline.tb_writer.flush()

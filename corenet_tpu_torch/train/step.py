@@ -6,6 +6,12 @@ its ground truth from the batch (`grid`, the JAX step's host-GT branch)
 or voxelizes the batch's triangles on its device (train/gt.py), and with
 a `phase_output` model trains on phase-major logits and labels (the
 phase loss): factor 8 for the fine decoder, 64 for the packed one.
+
+Under a process group (parallel/mesh.py) each rank steps on its shard of
+the global batch, as the JAX step does on a 'data' mesh: BatchRenorm's
+statistics and the loss are the global batch's, the gradients are
+averaged over ranks after the backward (one all-reduce), and every rank
+takes the same Adam step and counts the global batch.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from corenet_tpu_torch.models import losses
 from corenet_tpu_torch.models.corenet import CoreNet
 from corenet_tpu_torch.ops.phased_gt import phase_permute, phased_gt
+from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.train import gt
 from corenet_tpu_torch.train.state import TrainState
 from corenet_tpu_torch.voxel.parity import parity_voxelize_batch
@@ -76,6 +83,11 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   its running statistics), the task's loss, the backward pass and one
   Adam update, all in place, and returns the state with global_step
   advanced by B and {"loss": the loss before the update}.
+
+  Under a process group the batch is this rank's shard, of the same B on
+  every rank (checked each step); statistics and loss are the global
+  batch's, the update is the global gradient's, and global_step advances
+  by the global batch, B · world size.
   """
   loss_fn = loss_fn_for_task(task_type)
   resolution = tuple(resolution)
@@ -115,6 +127,7 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   def step(state: TrainState, batch: Batch):
     grid, phased, v2x = ground_truth(batch)
     batch_size = batch["image"].shape[0]
+    mesh.assert_equal_across_ranks(batch_size, "the batch size")
     v2s = compute_v2s(batch["camera"], v2x)
     model.train()
     optimizer.zero_grad(set_to_none=True)
@@ -134,9 +147,11 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
     else:
       loss = loss_fn(grid, logits)
     loss.backward()
+    mesh.all_reduce_gradients(model.parameters())
     optimizer.step()
     new_state = dataclasses.replace(
-        state, global_step=state.global_step + batch_size)
+        state,
+        global_step=state.global_step + batch_size * mesh.process_count())
     return new_state, {"loss": loss.detach()}
 
   return step

@@ -787,3 +787,75 @@ def test_bf16_inference_twin_on_card(device, monkeypatch):
   assert model.training and next(model.parameters()).device.type == "cuda"
   for k, v in model.state_dict().items():
     assert torch.equal(v, weights[k]), k
+
+
+def test_nccl_group_of_one_steps_as_no_group_does(device, tmp_path,
+                                                  monkeypatch):
+  """The packed phase-loss step at 64³ in an NCCL group of one rank and
+  without a group, from the same state with deterministic cuDNN: the
+  same launches, the loss and the new statistics bit for bit, and each
+  gradient bit for bit where two runs without a group are. K1's backward
+  adds with atomics, so two runs may differ in the order of its float32
+  sums (7.6e-6 relative L2 in the encoder's first convolution, H100,
+  700.00 W); then each gradient lies within the larger of 1e-6 and ten
+  times the two runs' worst difference."""
+  from corenet_tpu_torch.parallel import mesh
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+  monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+  rng = np.random.default_rng(0)
+  batch = _cube_batch(64)
+  batch["image"] = torch.from_numpy(
+      rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8))
+  batch["camera"] = torch.diag(torch.tensor([1.8, 1.8, 1.8, 1.0])).repeat(
+      2, 1, 1)
+  batch["camera"][:, :3, 3] = -0.9
+  batch = {k: v.to(device) for k, v in batch.items()}
+  model = CoreNet(CoreNetConfig(DecoderConfig((64, 64, 64), 2)),
+                  phase_output=True, packed_decoder=True)
+  model.reset_parameters(torch.Generator().manual_seed(0))
+  state = create_train_state(model, device=device)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", (64,) * 3,
+                         voxelization_kwargs=dict(
+                             image_resolution_multiplier=8,
+                             conservative_rasterization=False,
+                             max_bbox_pixels=VOXELIZE_WINDOW_PIXELS))
+  snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+  def one_step():
+    model.load_state_dict(snapshot)
+    counts = (scatter.launch_count, phased.launch_count, op.launch_count,
+              op.backward_launch_count, fgbg.launch_count)
+    collectives = mesh.collective_count
+    new_state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    after = (scatter.launch_count, phased.launch_count, op.launch_count,
+             op.backward_launch_count, fgbg.launch_count)
+    return (float(metrics["loss"]), new_state.global_step,
+            {n: p.grad.clone() for n, p in model.named_parameters()},
+            {n: b.clone() for n, b in model.named_buffers()},
+            tuple(a - c for a, c in zip(after, counts)),
+            mesh.collective_count - collectives)
+
+  def worst(run):
+    return max(float((run[2][n] - g).norm() / g.norm())
+               for n, g in alone[2].items() if float(g.norm()) > 0)
+
+  alone = one_step()
+  mesh.initialize(backend="nccl", init_method=f"file://{tmp_path}/store",
+                  rank=0, world_size=1, device=device)
+  try:
+    grouped = one_step()
+  finally:
+    mesh.shutdown()
+  again = one_step()
+  assert alone[4] == grouped[4] == (1, 1, 4, 4, 1)
+  assert alone[5] == 0 and grouped[5] > 0
+  assert alone[0] == grouped[0] == again[0]
+  assert alone[1] == grouped[1] == 2
+  for name, value in alone[3].items():
+    assert torch.equal(value, grouped[3][name]), name
+  floor = worst(again)
+  if floor == 0:
+    assert worst(grouped) == 0
+  else:
+    assert worst(grouped) <= max(1e-6, 10 * floor), (worst(grouped), floor)

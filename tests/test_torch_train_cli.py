@@ -125,11 +125,15 @@ def test_flags_are_the_jax_clis(config_path):
 
 def test_train_cli_refusals(config_path, monkeypatch):
   path, _ = config_path
-  for extra, slice_name in (("--multihost", "slice 7"),
-                            ("--space=2", "slice 7"),
+  for extra, slice_name in (("--space=2", "slice 7b"),
                             ("--gt_mode=host", "slice 8b")):
     with pytest.raises(NotImplementedError, match=slice_name):
       train_cli.main([f"--config_path={path}", "--device=cpu", extra])
+  # --multihost joins a process group from torchrun's environment; without
+  # one it raises, and no run goes on alone.
+  monkeypatch.delenv("RANK", raising=False)
+  with pytest.raises(RuntimeError, match="RANK is not set"):
+    train_cli.main([f"--config_path={path}", "--device=cpu", "--multihost"])
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   with pytest.raises(RuntimeError, match="no CUDA device"):
     train_cli.main([f"--config_path={path}"])

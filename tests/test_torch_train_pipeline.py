@@ -297,7 +297,7 @@ def test_refusals_name_their_slices(dataset, caplog):
       cfg.TrainPipeline, full_config_dict(root, manifest, meshes_dir))
   out = os.path.join(root, "refused")
   for kwargs, slice_name in ((dict(gt_mode="host"), "slice 8b"),
-                             (dict(mesh=object()), "slice 7")):
+                             (dict(mesh=object()), "slice 7b")):
     with pytest.raises(NotImplementedError, match=slice_name):
       pipeline.TrainPipeline(full.train, out, device="cpu", **kwargs)
   with pytest.raises(ValueError, match="phase_loss"):
