@@ -191,6 +191,34 @@ Phases; the run fails at the first that fails:
               0 alone, a resume that goes on with each rank's shard; then
               the train CLI under cli.launch and torchrun (NCCL, one
               process), 4 steps and a resume.
+  14. host-gt ground truth on the host: the native C++ voxelizer and
+              flood fill (corenet_tpu_torch/cc/) in the loader's producer
+              thread. (a) The library's g++ build (seconds) and the host's
+              CPU count. (b) Phase 6's h7 triangle batch (128³, irm 8) and
+              phase 8's y1 batch (32³, sub-grid, irm 31) through
+              data/batching.py::host_voxelize against the GT that the step
+              makes on the card, bit for bit (h7 also phased at s = 4:
+              phase_permute of the host grid against K4 on the packed GT);
+              host ms per batch (median of 5) and occupied voxels. (c)
+              TrainPipeline at h7's full width (128³, batch 4, bf16, the
+              packed decoder, the phase loss) on a seeded 72-scene dataset
+              for 16 steps with gt_mode "host" and with "device": launches
+              per step (K1 4, its backward 3 + 1 in packed voxel order,
+              K2 1, and K3 and K4 0 on host GT, 1 each on device GT),
+              finite losses, over steps 9-15 the median step, the
+              loader's wait and the period from step to step, the idle
+              share of a profiled step against the period, the host GT's
+              ms per batch in the producer thread; one float32 packed step from a seeded
+              state on the first host-GT batch with its grid and without
+              it (the GT made in the step): the losses within 1e-6
+              relative. (d) The train CLI with --gt_mode=host, 4 steps,
+              seconds per step. (e) The dataset's meshes as a ShapeNet
+              tree of OBJs through cli/preprocess_shapenet.py (the NPZ
+              vertices bit for bit), and a seeded released-layout state
+              dict at h7's widths through cli/import_corenet_checkpoint.py:
+              the `.cpt` served on the card through cli/eval.py's
+              load_model gives the directly loaded weights' PMF, bit for
+              bit.
 
 The float32 phases compute in float32: TF32 is switched off for
 convolutions and matmuls (phase 10 switches it on for its one TF32 row),
@@ -3739,7 +3767,501 @@ def dist_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
   return out
 
 
+# Phase 14: ground truth on the host (the native C++ voxelizer and fill in
+# the loader's producer thread), the dataset tools and the importer.
+# 16 steps: the loader's prefetch queue (2 batches, and those made while
+# the model and its first checkpoint are set up) hides the producer's pace
+# for the first ~6; the medians are taken over steps 9-15.
+HOST_GT_STEPS = 16
+HOST_GT_STEADY_FROM = 8
+HOST_GT_SCENES = 72  # one epoch of 18 batches covers the 16 steps
+HOST_GT_TIMED = 5    # host_voxelize calls per batch for the median
+# Launches per packed bf16 h7 step (skip_gather, its backward, fgbg_sums,
+# block_scatter_or, phased_gt) and the backwards of them in packed voxel
+# order: on host GT the step phases the batch's grid (phase_permute), so
+# K3 and K4 do not run.
+HOST_GT_LAUNCHES = {"host": ((4, 4, 1, 0, 0), 1),
+                    "device": ((4, 4, 1, 1, 1), 1)}
+
+
+def host_batch_of(batch):
+  """A HostBatch of a triangle batch (phase 6's or 8's). The step's
+  `mesh_labels` are each slot's voxel value, and host_voxelize takes them
+  as SEMANTIC content (mesh_labels × mesh_valid) with every slot valid:
+  the same grid, label 0 leaving its mesh out."""
+  import numpy as np
+  from corenet_tpu_torch.data.batching import HostBatch
+  arrays = {k: batch[k].numpy() for k in GT_KEYS}
+  return HostBatch(
+      image=None, camera=None, view_transform=None,
+      triangles=arrays["triangles"], tri_mesh_slot=arrays["tri_mesh_slot"],
+      tri_valid=arrays["tri_valid"], mesh_labels=arrays["mesh_labels"],
+      mesh_valid=np.ones_like(arrays["mesh_labels"], bool),
+      grid_offset=arrays["grid_offset"], scene_ids=[])
+
+
+def host_grid_row(torch, phased, name, batch, res, vox, dev):
+  """(b): a triangle batch through host_voxelize (HOST_GT_TIMED calls, the
+  median ms) and through the GT that the step makes on the card, bit for
+  bit; on h7's blocked path also the phase labels at s = 4, as the packed
+  step phases its packed grid (K4) and a host grid (phase_permute)."""
+  from corenet_tpu_torch.data.batching import host_voxelize
+  from corenet_tpu_torch.ops.phased_gt import phase_permute
+  from corenet_tpu_torch.train import gt
+  hb = host_batch_of(batch)
+  kwargs = dict(image_resolution_multiplier=vox["image_resolution_multiplier"],
+                conservative_rasterization=vox["conservative_rasterization"],
+                projection_depth_multiplier=vox["projection_depth_multiplier"],
+                sub_grid_sampling=vox["sub_grid_sampling"])
+  times = []
+  for _ in range(HOST_GT_TIMED):
+    start = time.perf_counter()
+    grid, v2x = host_voxelize(hb, "SEMANTIC", res, **kwargs)
+    times.append((time.perf_counter() - start) * 1e3)
+  card = {k: batch[k].to(dev) for k in GT_KEYS}
+  device_grid, device_v2x = gt.voxelize_batch(
+      *(card[k] for k in GT_KEYS), resolution=res, **vox)
+  host = torch.from_numpy(grid).to(dev)
+  differ = int((host != device_grid.to(torch.int32)).sum())
+  if differ or not torch.equal(torch.from_numpy(v2x).to(dev), device_v2x):
+    raise AssertionError(f"host-gt {name}: the host grid differs from the "
+                         f"card's GT in {differ} voxels (or v2x differs)")
+  row = {"host_ms": statistics.median(times), "host_ms_all": times,
+         "occupied": int((grid > 0).sum()), "voxels": int(grid.size),
+         "device_dtype": str(device_grid.dtype).replace("torch.", "")}
+  if gt.packed_fgbg_eligible(resolution=res, **vox):
+    packed, _ = gt.voxelize_batch_packed_fgbg(*(card[k] for k in GT_KEYS),
+                                              resolution=res, **vox)
+    if not torch.equal(phase_permute(host.to(torch.uint8), 4),
+                       phased.phased_gt(packed, 4)):
+      raise AssertionError(f"host-gt {name}: the phased host grid differs "
+                           "from the card's phased packed GT (s = 4)")
+    row["phased_s4_equal"] = True
+  log(f"host-gt (b) {name}: host grid = the card's GT bit for bit "
+      f"({row['occupied']} of {row['voxels']} voxels occupied, the card's "
+      f"grid {row['device_dtype']}"
+      + ("; phased at s = 4: host phase_permute = the card's phased_gt"
+         if "phased_s4_equal" in row else "")
+      + f"); host_voxelize {row['host_ms']:.1f} ms per batch of "
+      f"{grid.shape[0]} (median of {HOST_GT_TIMED}: "
+      + ", ".join(f"{t:.1f}" for t in times) + ")")
+  return row
+
+
+def host_gt_train_config(manifest, meshes_dir, root, name):
+  """h7's train configuration (h7_train_config) on phase 14's dataset,
+  with no recurrent eval and checkpoints only at the start and the end."""
+  full = h7_train_config(manifest, meshes_dir, root)
+  full["train"].update(checkpoint_interval=10 ** 6,
+                       persistent_checkpoint_interval=10 ** 6,
+                       tensorboard_log_interval=BATCH)
+  full["eval"] = []
+  full["output_path"] = os.path.join(root, name)
+  return full
+
+
+@contextlib.contextmanager
+def timed_pipeline_steps(torch, mods, figures, profile_index=None):
+  """Wraps the pipeline's make_train_step: each step is ended by a
+  synchronize and records its start, end and launches (with its
+  backwards in packed voxel order); the step at `profile_index` runs
+  under the profiler, and the first step's batch is kept."""
+  from corenet_tpu_torch.train import pipeline as pipeline_mod
+  op = mods[0]
+  real_make_step = pipeline_mod.make_train_step
+  backwards = []
+  for key in ("starts", "ends", "launches"):
+    figures.setdefault(key, [])
+
+  def counted_step(*args, **kwargs):
+    step = real_make_step(*args, **kwargs)
+
+    def wrapped(state, batch):
+      torch.cuda.synchronize()
+      counts = launch_counts(*mods)
+      seen = len(backwards)
+      if not figures["starts"]:
+        figures["first_batch"] = {k: v.clone() for k, v in batch.items()}
+      start = time.perf_counter()
+      if len(figures["starts"]) == profile_index:
+        holder = []
+        figures["profile"] = device_profile(
+            torch, lambda: holder.append(step(state, batch)))
+        result = holder[0]
+      else:
+        result = step(state, batch)
+        torch.cuda.synchronize()
+      figures["ends"].append(time.perf_counter())
+      figures["starts"].append(start)
+      figures["launches"].append((
+          tuple(a - b for a, b in zip(launch_counts(*mods), counts)),
+          sum(1 for args, _ in backwards[seen:] if args[0].dim() == 4)))
+      return result
+
+    return wrapped
+
+  pipeline_mod.make_train_step = counted_step
+  try:
+    with caught_calls(op, "skip_gather_backward", backwards):
+      yield figures
+  finally:
+    pipeline_mod.make_train_step = real_make_step
+
+
+def step_periods(figures, skip_last=False, first=1):
+  """Per step from index `first` (at least 1) on: the step's own ms, the
+  loader's wait (from the previous step's end to this step's start) and
+  the period (end to end), without the profiled last step if asked."""
+  starts, ends = figures["starts"], figures["ends"]
+  last = len(ends) - (1 if skip_last else 0)
+  idx = range(max(first, 1), last)
+  return ([(ends[i] - starts[i]) * 1e3 for i in idx],
+          [(starts[i] - ends[i - 1]) * 1e3 for i in idx],
+          [(ends[i] - ends[i - 1]) * 1e3 for i in idx])
+
+
+def host_gt_training(torch, mods, full, gt_mode, dev):
+  """(c): TrainPipeline at h7's full width (bf16, packed, the phase loss)
+  for HOST_GT_STEPS steps with `gt_mode`: launches per step, finite
+  losses, the median step, loader wait and period over the steady steps,
+  the idle share of the profiled last step against the median period, and
+  the host GT's ms per batch in the loader's producer thread."""
+  from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.train import pipeline as pipeline_mod
+  config = cfg.config_from_dict(cfg.TrainPipeline, full)
+  label = f"host-gt (c) TrainPipeline gt_mode={gt_mode!r}"
+  figures = {}
+  gt_ms = []
+  real_host_voxelize = pipeline_mod.host_voxelize
+
+  def timed_host_voxelize(*args, **kwargs):
+    start = time.perf_counter()
+    result = real_host_voxelize(*args, **kwargs)
+    gt_ms.append((time.perf_counter() - start) * 1e3)
+    return result
+
+  pipeline_mod.host_voxelize = timed_host_voxelize
+  try:
+    with timed_pipeline_steps(torch, mods, figures,
+                              profile_index=HOST_GT_STEPS - 1):
+      start = time.perf_counter()
+      p = pipeline_mod.TrainPipeline(config.train, config.output_path,
+                                     gt_mode=gt_mode, device=dev)
+      p.run(max_steps=HOST_GT_STEPS * BATCH)
+      torch.cuda.synchronize()
+      run_s = time.perf_counter() - start
+  finally:
+    pipeline_mod.host_voxelize = real_host_voxelize
+  expected = HOST_GT_LAUNCHES[gt_mode]
+  if (len(figures["launches"]) != HOST_GT_STEPS
+      or set(figures["launches"]) != {expected}):
+    raise AssertionError(f"{label}: launches per step (K1 fwd, K1 bwd, K2, "
+                         f"K3, K4; packed-order backwards) "
+                         f"{figures['launches']}, expected {expected}")
+  if not (p.model.packed_decoder and p.model.phase_output
+          and p.model.compute_dtype == torch.bfloat16):
+    raise AssertionError(f"{label}: not the packed bf16 phase-loss model")
+  with open(os.path.join(config.output_path, "tb", "train",
+                         "scalars.jsonl")) as f:
+    losses = [json.loads(line)["value"] for line in f
+              if json.loads(line)["tag"] == "loss"]
+  if len(losses) != HOST_GT_STEPS or not all(map(math.isfinite, losses)):
+    raise AssertionError(f"{label}: losses {losses}")
+  step_ms, wait_ms, period_ms = step_periods(figures, skip_last=True,
+                                             first=HOST_GT_STEADY_FROM)
+  profile = figures["profile"]
+  out = {"launches": figures["launches"][0][0],
+         "loader_gt_ms": statistics.median(gt_ms) if gt_ms else None,
+         "loader_gt_calls": len(gt_ms),
+         "packed_order_backwards": figures["launches"][0][1],
+         "losses": losses, "run_s": run_s,
+         "first_step_ms": (figures["ends"][0] - figures["starts"][0]) * 1e3,
+         "step_ms": statistics.median(step_ms), "step_ms_all": step_ms,
+         "wait_ms": statistics.median(wait_ms), "wait_ms_all": wait_ms,
+         "period_ms": statistics.median(period_ms),
+         "busy_ms": profile["busy_ms"] if profile else None}
+  out["idle_share"] = (1 - out["busy_ms"] / out["period_ms"]
+                       if profile else None)
+  log(f"{label}: {HOST_GT_STEPS} steps in {run_s:.1f} s (with the model, "
+      f"the loader's start and 2 checkpoints); launches per step "
+      f"{out['launches']}, {out['packed_order_backwards']} backward in "
+      f"packed order, in every step; losses "
+      + ", ".join(f"{v:.5f}" for v in losses)
+      + f"; over steps {HOST_GT_STEADY_FROM + 1}-{HOST_GT_STEPS - 1}: step "
+      f"{out['step_ms']:.3f} ms, loader wait {out['wait_ms']:.3f} ms, period "
+      f"{out['period_ms']:.3f} ms (medians); the waits of steps 2-"
+      f"{HOST_GT_STEPS}: " + ", ".join(
+          f"{w:.1f}" for w in step_periods(figures)[1])
+      + (f"; host_voxelize in the producer thread {out['loader_gt_ms']:.1f} "
+         f"ms per batch (median of {len(gt_ms)})" if gt_ms else ""))
+  log_profile(label, profile, out["period_ms"], what="step (against the "
+              "median period)")
+  return out, figures["first_batch"]
+
+
+def host_gt_float32_loss(torch, mods, CoreNet, model_config, batch, dev):
+  """(c): one float32 packed step from a seeded state on the first host-GT
+  batch, and the same step from the same state on that batch without its
+  grid (the GT made in the step): the losses within 1e-6 relative."""
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  model, _ = seeded_model(torch, CoreNet, model_config, SEED + 140,
+                          phase_output=True, packed_decoder=True)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+  saved = (copy.deepcopy(state.model.state_dict()),
+           copy.deepcopy(state.optimizer.state_dict()))
+  losses, launches = {}, {}
+  for mode, inputs in (("host", batch),
+                       ("device", {k: v for k, v in batch.items()
+                                   if k not in ("grid", "v2x")})):
+    state.model.load_state_dict(saved[0])
+    state.optimizer.load_state_dict(saved[1])
+    torch.cuda.synchronize()
+    zero_counts(*mods)
+    _, metrics = step(state, inputs)
+    losses[mode] = float(metrics["loss"])
+    launches[mode] = launch_counts(*mods)
+  rel = abs(losses["host"] - losses["device"]) / abs(losses["device"])
+  if rel > 1e-6 or launches != {k: v[0] for k, v in HOST_GT_LAUNCHES.items()}:
+    raise AssertionError(f"host-gt (c) float32: losses {losses} ({rel:.2e} "
+                         f"relative), launches {launches}")
+  log(f"host-gt (c) float32 packed step from one seeded state on the first "
+      f"host-GT batch: loss {losses['host']:.8f} on the host grid, "
+      f"{losses['device']:.8f} with the GT made in the step ({rel:.2e} "
+      f"relative; tolerance 1e-6); launches {launches['host']} and "
+      f"{launches['device']}")
+  return {"losses": losses, "rel": rel}
+
+
+def host_gt_cli(torch, mods, full, root):
+  """(d): the train CLI with --gt_mode=host, 4 steps: seconds per step
+  (the period from step end to step end, the loader's wait included)."""
+  from corenet_tpu_torch.cli import train as train_cli_mod
+  path = os.path.join(root, "h7_host_cli.json")
+  with open(path, "w") as f:
+    json.dump(full, f)
+  figures = {}
+  with timed_pipeline_steps(torch, mods, figures):
+    start = time.perf_counter()
+    p = train_cli_mod.main([f"--config_path={path}", "--max_steps=16",
+                            "--gt_mode=host"])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - start
+  if p.gt_mode != "host" or p.state.global_step != 16 or (
+      set(figures["launches"]) != {HOST_GT_LAUNCHES["host"]}):
+    raise AssertionError(f"host-gt (d): gt_mode {p.gt_mode}, step "
+                         f"{p.state.global_step}, launches "
+                         f"{figures['launches']}")
+  _, _, period_ms = step_periods(figures)
+  out = {"call_s": call_s, "s_per_step": [t / 1e3 for t in period_ms],
+         "first_step_s": figures["ends"][0] - figures["starts"][0]}
+  log(f"host-gt (d) train CLI --gt_mode=host: 4 steps, the call "
+      f"{call_s:.1f} s; seconds per step after the first "
+      + ", ".join(f"{s:.3f}" for s in out["s_per_step"])
+      + f" (the first {out['first_step_s']:.3f} s); launches "
+      f"{figures['launches'][0]}")
+  return out
+
+
+def write_obj(path, triangles):
+  """An OBJ of a triangle soup: three vertices per face, each written with
+  9 significant digits, so that it reads back as the same float32."""
+  lines = []
+  for tri in triangles:
+    lines += ["v " + " ".join(f"{v:.9g}" for v in vertex) for vertex in tri]
+  lines += [f"f {3 * i + 1} {3 * i + 2} {3 * i + 3}"
+            for i in range(len(triangles))]
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  with open(path, "w") as f:
+    f.write("\n".join(lines) + "\n")
+
+
+def tools_and_importer(torch, CoreNet, manifest, meshes_dir, root, dev):
+  """(e): phase 14's meshes written as a ShapeNet tree of OBJs through
+  cli/preprocess_shapenet.py give the mesh NPZs' vertices bit for bit; a
+  seeded released-layout state dict at h7's widths through
+  cli/import_corenet_checkpoint.py gives a `.cpt` that serves on the card
+  (cli/eval.py::load_model) the PMF of the same weights loaded directly,
+  bit for bit."""
+  import numpy as np
+  from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.cli import import_corenet_checkpoint as importer
+  from corenet_tpu_torch.cli import preprocess_shapenet
+  from corenet_tpu_torch.cli.eval import load_model
+  from corenet_tpu_torch.eval.super_resolution import (
+      super_resolution_from_model)
+  from corenet_tpu_torch.models.convert import jax_variables_from_state_dict
+  from corenet_tpu_torch.train.pipeline import model_config_from_train_config
+  out = {}
+  sources = sorted(
+      (label, os.path.splitext(name)[0])
+      for label in os.listdir(meshes_dir)
+      for name in os.listdir(os.path.join(meshes_dir, label)))
+  for label, name in sources:
+    with np.load(os.path.join(meshes_dir, label, name + ".npz")) as z:
+      write_obj(os.path.join(root, "shapenet", label, name, "models",
+                             "model_normalized.obj"), z["vertices"])
+  start = time.perf_counter()
+  preprocess_shapenet.main([f"--shapenet_root={root}/shapenet",
+                            f"--output_root={root}/preprocessed",
+                            "--num_workers=2"])
+  out["preprocess_s"] = time.perf_counter() - start
+  for label, name in sources:
+    with np.load(os.path.join(meshes_dir, label, name + ".npz")) as want, \
+        np.load(os.path.join(root, "preprocessed", label,
+                             name + ".npz")) as got:
+      if not (got["vertices"].dtype == want["vertices"].dtype
+              and np.array_equal(got["vertices"], want["vertices"])
+              and str(got["label"]) == label
+              and str(got["mesh_id"]) == name):
+        raise AssertionError(f"host-gt (e): preprocessed {label}/{name} "
+                             "differs from the mesh written directly")
+  log(f"host-gt (e) preprocess_shapenet: {len(sources)} meshes as OBJ → "
+      f"NPZ in {out['preprocess_s']:.2f} s (2 spawned workers), vertices "
+      "equal to the NPZs written directly, bit for bit")
+
+  full = host_gt_train_config(manifest, meshes_dir, root, "h7_imported")
+  config_path = os.path.join(root, "h7_import.json")
+  with open(config_path, "w") as f:
+    json.dump(full, f)
+  model_config = model_config_from_train_config(
+      cfg.config_from_dict(cfg.TrainPipeline, full).train, 2)
+  model, state_dict = seeded_model(torch, CoreNet, model_config, SEED + 150)
+  flat = {}
+  for collection, tree in jax_variables_from_state_dict(state_dict).items():
+    stack = [((collection,), tree)]
+    while stack:
+      prefix, node = stack.pop()
+      for key, value in node.items():
+        if isinstance(value, dict):
+          stack.append((prefix + (key,), value))
+        else:
+          flat["/".join(prefix + (key,))] = value
+  released = os.path.join(root, "released.cpt")
+  torch.save({"model_state": importer.reference_state_dict(flat),
+              "global_step": 7}, released)
+  cpt = os.path.join(root, "imported", "h7.cpt")
+  start = time.perf_counter()
+  importer.main([f"--torch_checkpoint={released}",
+                 f"--train_config={config_path}", f"--output_path={cpt}"])
+  out["import_s"] = time.perf_counter() - start
+  served, _, _, step = load_model(cpt)
+  camera, v2x = camera_and_v2x(torch, OUTPUT_RES[0])
+  image = torch.randint(0, 256, (BATCH, IMAGE_HW, IMAGE_HW, 3),
+                        dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(SEED + 151))
+  args = (image, camera, v2x, torch.full((BATCH, 3), 0.5), OUTPUT_RES)
+  # cuDNN held to deterministic algorithms, so that no convolution sums in
+  # a run-dependent order.
+  torch.backends.cudnn.deterministic = True
+  try:
+    pmfs = [super_resolution_from_model(m, m.state_dict(), OUTPUT_RES,
+                                        device=dev)(*args)
+            for m in (served, model)]
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  if step != 7 or not torch.equal(*pmfs):
+    raise AssertionError(f"host-gt (e): the imported .cpt (step {step}) "
+                         f"serves a PMF {float((pmfs[0] - pmfs[1]).abs().max())}"
+                         " from the direct one")
+  out["cpt_mb"] = os.path.getsize(cpt) / 2 ** 20
+  log(f"host-gt (e) import_corenet_checkpoint: {len(flat)} released-layout "
+      f"tensors at h7's widths → {out['cpt_mb']:.1f} MiB .cpt in "
+      f"{out['import_s']:.2f} s; served on the card through load_model, the "
+      f"PMF {list(pmfs[0].shape)} equals the directly loaded weights', bit "
+      "for bit")
+  return out
+
+
+def host_gt_phase(torch, mods, CoreNet, image, camera, dev):
+  """Phase 14: the native library's build, (b) host grids against the
+  card's GT, (c) TrainPipeline on host GT against device GT, (d) the train
+  CLI on host GT, (e) the dataset tool and the importer."""
+  import pathlib
+  from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.cc import native
+  from corenet_tpu_torch.train.pipeline import model_config_from_train_config
+  phase_start = time.perf_counter()
+  # The checkout's library is built at its first use, here; where a
+  # library is there already, a fresh build into a temporary directory
+  # is timed instead.
+  existed = native.library_path().exists()
+  with tempfile.TemporaryDirectory() as tmp:
+    saved_dir = native.BUILD_DIR
+    if existed:
+      native.BUILD_DIR = pathlib.Path(tmp)
+    try:
+      start = time.perf_counter()
+      native.build()
+      build_s = time.perf_counter() - start
+    finally:
+      native.BUILD_DIR = saved_dir
+  native.load_library()
+  out = {"build_s": build_s, "cpu_count": os.cpu_count(),
+         "library": native.library_path().name, "rebuilt": existed}
+  log(f"host-gt (a) build: the native GT library ({out['library']}) with "
+      f"g++ {' '.join(native.GXX_FLAGS)} in {out['build_s']:.2f} s"
+      + (" (a fresh build beside the checkout's existing one)" if existed
+         else " at its first use")
+      + f"; os.cpu_count() {out['cpu_count']}")
+
+  h7_batch, _ = triangle_batch(torch, image, camera, SEED + 41)
+  y1_batch, _ = triangle_batch(torch, image, camera, SEED + 61,
+                               irm=Y1_VOX["image_resolution_multiplier"],
+                               res=Y1_NATIVE[0])
+  out["grids"] = {
+      "h7": host_grid_row(torch, mods[3], "h7 (phase 6's batch, 128³, irm 8)",
+                          h7_batch, OUTPUT_RES, H7_VOX, dev),
+      "y1": host_grid_row(torch, mods[3], "y1 (phase 8's batch, 32³, "
+                          "sub-grid, irm 31)", y1_batch, Y1_NATIVE, Y1_VOX,
+                          dev)}
+  del h7_batch, y1_batch
+
+  with tempfile.TemporaryDirectory() as root:
+    manifest, meshes_dir = write_eval_dataset(root, SEED + 140,
+                                              scenes=HOST_GT_SCENES)
+    runs = {}
+    for mode in ("host", "device"):
+      runs[mode], first_batch = host_gt_training(
+          torch, mods, host_gt_train_config(manifest, meshes_dir, root,
+                                            f"h7_{mode}"), mode, dev)
+      if mode == "host":
+        host_first_batch = first_batch
+      torch.cuda.empty_cache()
+    out["train"] = runs
+    log(f"host-gt (c) on host GT against device GT: step "
+        f"{runs['host']['step_ms']:.3f} against {runs['device']['step_ms']:.3f}"
+        f" ms, loader wait {runs['host']['wait_ms']:.3f} against "
+        f"{runs['device']['wait_ms']:.3f} ms, period "
+        f"{runs['host']['period_ms']:.3f} against "
+        f"{runs['device']['period_ms']:.3f} ms, idle share "
+        f"{runs['host']['idle_share']} against {runs['device']['idle_share']}")
+    if set(host_first_batch) != set(GT_KEYS) | {"image", "camera", "grid",
+                                                "v2x"}:
+      raise AssertionError(f"host-gt (c): the host-GT batch holds "
+                           f"{sorted(host_first_batch)}")
+    model_config = model_config_from_train_config(
+        cfg.config_from_dict(cfg.TrainPipeline, host_gt_train_config(
+            manifest, meshes_dir, root, "x")).train, 2)
+    out["float32"] = host_gt_float32_loss(torch, mods, CoreNet, model_config,
+                                          host_first_batch, dev)
+    del host_first_batch
+    torch.cuda.empty_cache()
+    out["cli"] = host_gt_cli(torch, mods, host_gt_train_config(
+        manifest, meshes_dir, root, "h7_host_cli"), root)
+    torch.cuda.empty_cache()
+    out["tools"] = tools_and_importer(torch, CoreNet, manifest, meshes_dir,
+                                      root, dev)
+  out["seconds"] = time.perf_counter() - phase_start
+  log(f"host-gt: phase 14 took {out['seconds']:.1f} s")
+  return out
+
+
 def main() -> int:
+  smoke_start = time.perf_counter()
   import torch
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3974,6 +4496,11 @@ def main() -> int:
   # 13. Data parallelism over processes: NCCL at world 1, 2 gloo ranks.
   dist = dist_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
                     image, camera, v2x, dev)
+  torch.cuda.empty_cache()
+
+  # 14. Ground truth on the host (native C++ in the loader), the dataset
+  # tool and the importer.
+  host_gt = host_gt_phase(torch, mods, CoreNet, image, camera, dev)
 
   # Launches per path, each counted from zero just before the path ran:
   # one serving forward, one training step, one eval run of 3 batches, one
@@ -4002,7 +4529,9 @@ def main() -> int:
                f"step": dist["b"][f"{name} split"]["launches"][rank][i]
                for name, _ in DIST_DTYPES for rank in range(DIST_WORLD)},
             "TrainPipeline on 2 gloo ranks at 32³, rank 0, 1 step":
-                dist["c"]["launches"][i]}
+                dist["c"]["launches"][i],
+            "h7 TrainPipeline packed bf16 on host GT, 1 step":
+                host_gt["train"]["host"]["launches"][i]}
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -4130,6 +4659,7 @@ def main() -> int:
   entry["train_cli"] = {k: v for k, v in train_cli_figures.items()
                         if k != "losses"}
   entry["distributed"] = dist
+  entry["host_gt"] = host_gt
   log(f"h7 scenes/s {h7_serve['scenes_per_s']:.3f}; y1 scenes/s "
       f"{y1_serve['scenes_per_s']:.3f} (median of {SERVE_RUNS} forwards); h7 "
       f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
@@ -4143,6 +4673,7 @@ def main() -> int:
       f" on host GT, y1 {BATCH * 1e3 / bf16['y1']['median_ms']:.3f}; h7 "
       f"float32 with TF32 "
       f"{BATCH * 1e3 / bf16['h7_gt_tf32']['median_ms']:.3f}")
+  log(f"smoke: all 14 phases in {time.perf_counter() - smoke_start:.1f} s")
   log(smi)
   log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries
                   + packed_entries}))

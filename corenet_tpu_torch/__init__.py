@@ -4,6 +4,8 @@ Hopper (H100), beside the JAX package, which stays the reference.
 It follows corenet_tpu's module layout and names, so each module's
 counterpart is the file of the same path there:
   csrc/      hand-written CUDA kernels (sm_90a), plain C interfaces
+  cc/        the native C++ voxelizer and flood fill for ground truth on
+             the host, built with g++ at first use
   kernels/   builds csrc/ with nvcc at first use and loads it with ctypes
   ops/       kernel wrappers, each beside its plain PyTorch version
   models/    ResNet-50, BatchRenorm, decoder (fine or space-to-depth
@@ -32,11 +34,13 @@ counterpart is the file of the same path there:
   parallel/  data parallelism over processes: the process group, the
              differentiable all-reduce, gradient averaging, host
              reductions over gloo
-  cli/       the train, eval and demo entry points (python -m ...), the
-             retry launcher and the encoder .npz reader
+  cli/       the train, eval, demo and frozen-graph eval entry points
+             (python -m ...), the retry launcher, the dataset and config
+             tools, the checkpoint and encoder importers
   utils/     rounding and tiling helpers, local + gs:// file I/O, flags,
              summaries (JSONL, TensorBoard when it imports), PNG bytes,
-             the device check, rank-tagged logs and progress
+             the device check, rank-tagged logs and progress, debugging
+             summaries
 
 Ported so far: the serving path; the training step, on host ground truth
 or on ground truth voxelized in the step (the blocked rasterizer with the
@@ -51,8 +55,11 @@ one per device (`parallel/`, torch.distributed under torchrun: global
 BatchRenorm statistics and loss, averaged gradients, sharded loaders,
 rank-0 checkpoints, cross-rank eval metrics). Public functions keep the
 JAX package's channel-last layouts.
-Nothing here imports JAX, corenet_tpu, pandas, msgpack or tensorboard
-at import time; json5, PIL (image decoding) and tensorboard are
+Ground truth on the host (`gt_mode="host"`: the C++ ops in the loader)
+trains as the JAX package's does.
+Nothing here imports JAX, corenet_tpu, pandas, msgpack, tensorboard,
+tensorflow or h5py at import time; json5, PIL (image decoding),
+tensorboard, tensorflow (frozen graphs) and h5py (Keras weights) are
 optional.
 
 An eval on the CPU, from a manifest to the mean IoU:

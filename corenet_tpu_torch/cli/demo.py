@@ -1,15 +1,17 @@
 """Single-scene reconstruction demo (the role of corenet_demo.ipynb).
 
 Counterpart of corenet_tpu/cli/demo.py: loads a `.cpt` checkpoint (written
-by either package), reconstructs one scene NPZ, voxelizes its meshes as
-the ground truth (image resolution multiplier 4, a 24-pixel window), and
-writes a qualitative tile as PNG (utils/png.py):
+by either package) or a frozen TF graph (`.pb`, through eval/tf_model.py;
+TensorFlow is optional), reconstructs one scene NPZ, voxelizes its meshes
+as the ground truth (image resolution multiplier 4, a 24-pixel window),
+and writes a qualitative tile as PNG (utils/png.py):
 [input image | predicted surface | predicted voxels | GT voxels | GT mesh]
-under five cameras. Frozen TF graphs (`.pb`) are not ported yet.
+under five cameras.
 
 Usage:
   python -m corenet_tpu_torch.cli.demo --scene=<scene.npz> \\
-      --meshes_dir=<dir> --checkpoint=<state.cpt> --output=recon.png \\
+      --meshes_dir=<dir> --checkpoint=<state.cpt | model.pb> \\
+      --output=recon.png \\
       [--resolution=128] [--device=cpu]
 """
 
@@ -34,7 +36,7 @@ DEMO_WINDOW_PIXELS = 24
 class ProgramArgs:
   scene: str = flags.flag("Path to a scene NPZ")
   meshes_dir: str = flags.flag("Directory with mesh NPZs")
-  checkpoint: str = flags.flag("corenet-tpu .cpt checkpoint")
+  checkpoint: str = flags.flag("corenet-tpu .cpt or frozen-TF .pb")
   output: str = flags.flag("Output PNG path", default="reconstruction.png")
   resolution: int = flags.flag("Output grid resolution", default=128)
   high_realism: bool = flags.flag("Use the PBRT render as input",
@@ -51,10 +53,6 @@ class ProgramArgs:
 def main(argv=None):
   logging.basicConfig(level=logging.INFO)
   args = flags.parse_flags(ProgramArgs, argv)
-  if args.checkpoint.endswith(".pb"):
-    raise NotImplementedError(
-        "frozen TF graphs (.pb) come with the port's slice 8b; pass a .cpt "
-        "checkpoint")
   device = checked_device(args.device)
 
   from corenet_tpu_torch.cli.eval import load_model
@@ -89,10 +87,16 @@ def main(argv=None):
       image_resolution_multiplier=DEMO_IMAGE_RESOLUTION_MULTIPLIER,
       max_bbox_pixels=DEMO_WINDOW_PIXELS)
 
-  model, _, _, _ = load_model(args.checkpoint)
-  inference = super_resolution_from_model(
-      model, model.state_dict(), model.config.decoder.resolution,
-      packed_execution=args.packed_inference, device=device)
+  if args.checkpoint.endswith(".pb"):
+    from corenet_tpu_torch.eval.tf_model import (
+        super_resolution_from_tf_model)
+    inference = super_resolution_from_tf_model(args.checkpoint,
+                                               device=device)
+  else:
+    model, _, _, _ = load_model(args.checkpoint)
+    inference = super_resolution_from_model(
+        model, model.state_dict(), model.config.decoder.resolution,
+        packed_execution=args.packed_inference, device=device)
   pmf = inference(inputs["image"], inputs["camera"], v2x,
                   inputs["grid_offset"], res)
 

@@ -22,9 +22,10 @@ batch size is per process), under the retry supervisor if wanted:
 (parallel/mesh.py: NCCL on cards, gloo with --device=cpu), trains on
 cuda:LOCAL_RANK, and logs each rank to <output_path>/logs/.
 
-Not ported yet, each refused with its slice: --space > 1 (slice 7b),
---gt_mode=host (slice 8b). --compilation_cache_dir is XLA's and has no
-effect here. The recurrent evals decode with the fine decoder whatever
+--gt_mode=host voxelizes the ground truth with the native C++ ops in the
+loader's producer thread, overlapping the step. Not ported yet, and
+refused with its slice: --space > 1 (slice 7b). --compilation_cache_dir
+is XLA's and has no effect here. The recurrent evals decode with the fine decoder whatever
 --decoder_execution trains (train/pipeline.py).
 """
 
@@ -66,8 +67,8 @@ class ProgramArgs:
       "Size of the 'space' mesh axis; only 1 is ported (slice 7b brings "
       "more)", default=1)
   gt_mode: str = flags.flag(
-      "GT generation: 'device' (in the step); 'host' is not ported yet "
-      "(slice 8b)", default="device")
+      "GT generation: 'device' (in the step) or 'host' (native C++ in the "
+      "loader's producer thread)", default="device")
   gt_algorithm: str = flags.flag(
       "'raster' (rasterize + fill) or 'parity' (exact center sampling,"
       " closed meshes)", default="raster")

@@ -1,10 +1,10 @@
 """Host-side batch assembly → padded, static-shape buffers (numpy).
 
 The port's own copy of corenet_tpu/data/batching.py, a near-copy with its
-imports renamed; `host_voxelize` is not here (it needs the C++ ops of
-corenet_tpu/cc/, which are not ported yet). Everything is [batch, ...] with
-fixed padded sizes, so a batch feeds the step (which voxelizes the ground
-truth on its device; train/gt.py) without any ragged structure.
+imports renamed. Everything is [batch, ...] with fixed padded sizes, so a
+batch feeds the step (which voxelizes the ground truth on its device;
+train/gt.py) without any ragged structure; `host_voxelize` makes the
+ground truth on the host instead, through the native C++ ops (cc/).
 
 * Mesh vertices are transformed object → view on the host (w2v @ o2w per
   mesh): tiny matmuls.
@@ -215,3 +215,61 @@ def batch(elements: Sequence[DatasetElement],
       mesh_valid=mesh_valid,
       grid_offset=np.asarray(grid_offsets, np.float32),
       scene_ids=[e.scene_id for e in elements])
+
+
+def host_voxelize(hb: HostBatch, task_type: str,
+                  resolution,
+                  image_resolution_multiplier: float = 4,
+                  conservative_rasterization: bool = True,
+                  projection_depth_multiplier: int = 1,
+                  sub_grid_sampling: bool = False,
+                  fill_inside: bool = True):
+  """Ground-truth grids on the host, through the native C++ ops (cc/).
+
+  The alternative to the GT voxelized in the step (train/gt.py): run in
+  the data loader's producer thread, rasterize + fill overlap the step on
+  the device, trading host CPU for device time. The same sampling rules
+  as the tensor GT; returns (grid int32[B, D, H, W], v2x float32[B, 4,
+  4]), the step's `grid` and `v2x`. Voxel values per task as
+  `HostBatch.step_inputs`: FG_BG → 1, SEMANTIC → the mesh's class, any
+  other → its slot + 1.
+  """
+  from corenet_tpu_torch.cc import native
+
+  d, h, w = (int(v) for v in resolution)
+  m = float(max(d, h, w))
+  b = hb.triangles.shape[0]
+  grids = np.zeros((b, d, h, w), np.int32)
+  v2x = np.broadcast_to(np.diag([m, m, m, 1.0]).astype(np.float32),
+                        (b, 4, 4)).copy()
+
+  if task_type == "FG_BG":
+    content = hb.mesh_valid.astype(np.int32)
+  elif task_type == "SEMANTIC":
+    content = hb.mesh_labels * hb.mesh_valid
+  else:
+    content = ((np.arange(hb.mesh_labels.shape[1], dtype=np.int32)[None] + 1)
+               * hb.mesh_valid)
+
+  for i in range(b):
+    valid = hb.tri_valid[i]
+    tris = hb.triangles[i][valid] * m + (hb.grid_offset[i] - 0.5)
+    slots = hb.tri_mesh_slot[i][valid]
+    order = np.argsort(slots, kind="stable")
+    tris, slots = tris[order], slots[order]
+    num_meshes = int(hb.mesh_valid[i].sum()) or 1
+    mesh_grids = native.voxelize_triangles(
+        tris.astype(np.float32), slots.astype(np.int32), num_meshes,
+        (d, h, w),
+        image_resolution_multiplier=image_resolution_multiplier,
+        conservative_rasterization=conservative_rasterization,
+        projection_depth_multiplier=projection_depth_multiplier,
+        sub_grid_sampling=sub_grid_sampling)
+    if fill_inside:
+      mesh_grids = native.fill_inside_voxels(mesh_grids)
+    if sub_grid_sampling:
+      mesh_grids = mesh_grids[:, 1::2, 1::2, 1::2]
+    labels = content[i][:num_meshes].astype(np.float32)
+    grids[i] = (mesh_grids * labels[:, None, None, None]).max(0).astype(
+        np.int32)
+  return grids, v2x

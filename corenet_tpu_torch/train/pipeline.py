@@ -25,9 +25,11 @@ reads it; rank 0 alone writes checkpoints and summaries; the raster
 ground truth takes a static fill; rank 0 logs every worker's progress.
 Every rank runs the recurrent evals, each on its shard of the eval set.
 
-Not ported here, each refused with the slice that brings it: host ground
-truth (`gt_mode="host"`, slice 8b), a device mesh with a 'space' axis
-(slice 7b).
+With `gt_mode="host"` the loader's producer thread voxelizes each batch
+with the native C++ ops (data/batching.py::host_voxelize) while the step
+runs, and the step trains on that `grid`. Not ported here, and refused
+with the slice that brings it: a device mesh with a 'space' axis (slice
+7b).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ import torch
 
 from corenet_tpu_torch.config import config as cfg
 from corenet_tpu_torch.config.config import config_to_dict
-from corenet_tpu_torch.data.batching import VOXELIZE_WINDOW_PIXELS
+from corenet_tpu_torch.data.batching import (
+    VOXELIZE_WINDOW_PIXELS, host_voxelize)
 from corenet_tpu_torch.data.loader import DataLoader, distributed_indices
 from corenet_tpu_torch.data.manager import DatasetManager
 from corenet_tpu_torch.eval.pipeline import EvalPipeline
@@ -104,8 +107,9 @@ class TrainPipeline:
                renorm_ramp_start: Optional[int] = None, device="cuda"):
     """Arguments as the JAX package's TrainPipeline:
 
-    gt_mode: 'device' voxelizes the ground truth in the step ('host', the
-      native C++ ops in the loader, is slice 8b).
+    gt_mode: 'device' voxelizes the ground truth in the step; 'host'
+      voxelizes it with the native C++ ops in the loader's producer
+      thread, overlapping the step (trades host CPU for device time).
     gt_algorithm: 'raster' (rasterize + fill) or 'parity'.
     compute_dtype: 'bfloat16' (the default; float32 parameters,
       statistics, logits and gradients) or 'float32'.
@@ -131,10 +135,6 @@ class TrainPipeline:
           "parallelism is the process group (parallel.mesh.initialize)")
     if gt_mode not in ("device", "host"):
       raise ValueError(f"unknown gt_mode {gt_mode!r}")
-    if gt_mode == "host":
-      raise NotImplementedError("gt_mode='host' (the native C++ ground "
-                                "truth in the loader) is slice 8b of the "
-                                "port")
     if gt_algorithm not in ("raster", "parity"):
       raise ValueError(f"unknown gt_algorithm {gt_algorithm!r}")
     if compute_dtype not in COMPUTE_DTYPES:
@@ -305,7 +305,24 @@ class TrainPipeline:
         max_edge_view=self.max_edge_view,
         random_grid_offset=self.config.random_grid_offset,
         seed=start_step, drop_last=True,
+        batch_transform=(self.host_ground_truth if self.gt_mode == "host"
+                         else None),
         worker_processes=None if dl_cfg.worker_processes else False)
+
+  def host_ground_truth(self, hb) -> Dict[str, Any]:
+    """The `grid` and `v2x` of a host batch, voxelized on the host as the
+    configuration's `voxelization_config` asks (the loader's
+    `batch_transform` under gt_mode='host')."""
+    vc = self.config.data.voxelization_config
+    grid, v2x = host_voxelize(
+        hb, self.task_type, self.resolution,
+        image_resolution_multiplier=(
+            vc.voxelization_image_resolution_multiplier),
+        conservative_rasterization=vc.conservative_rasterization,
+        projection_depth_multiplier=(
+            vc.voxelization_projection_depth_multiplier),
+        sub_grid_sampling=vc.sub_grid_sampling)
+    return {"grid": grid, "v2x": v2x}
 
   def train_steps(self):
     """Infinite generator of (global_step, metrics). Each epoch's dataset
@@ -332,8 +349,10 @@ class TrainPipeline:
     audit): the scene is voxelized without fill, and one round beyond the
     static count must change nothing. False is logged as an error (that
     scene's ground truth is under-filled). None when there is nothing to
-    audit: adaptive fill, the parity GT, or no batch yet."""
-    if self.fill_rounds is None or self.gt_algorithm != "raster":
+    audit: adaptive fill, the parity GT, the host GT (whose C++ flood
+    fill is exact), or no batch yet."""
+    if (self.fill_rounds is None or self.gt_algorithm != "raster"
+        or self.gt_mode != "device"):
       return None
     batch = self._last_batch
     if batch is None:

@@ -39,6 +39,8 @@ from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
 from corenet_tpu_torch.utils.png import decode_png
 from helpers import make_fixture_dataset
+from test_torch_saved_states import (  # noqa: F401  (an autouse fixture)
+    remove_saved_states, remove_states_after_each_test)
 
 torch.set_num_threads(2)
 
@@ -64,7 +66,8 @@ def _data_pipeline(manifest, meshes_dir):
 
 @pytest.fixture(scope="module")
 def checkpoint(tmp_path_factory):
-  """(.cpt path, scene NPZ path, meshes dir, the seeded model)."""
+  """(.cpt path, scene NPZ path, meshes dir, the seeded model); the
+  `.cpt` is removed once the module's tests are done."""
   root = tmp_path_factory.mktemp("cli")
   manifest, meshes_dir = make_fixture_dataset(str(root / "ds"),
                                               num_scenes=SCENES)
@@ -96,7 +99,8 @@ def checkpoint(tmp_path_factory):
       "classes": ["__void__", "class_a", "class_b"]}))
   scene = os.path.join(os.path.dirname(manifest),
                        json.load(open(manifest))["files"][0])
-  return str(path), scene, meshes_dir, model
+  yield str(path), scene, meshes_dir, model
+  remove_saved_states(root)
 
 
 def _recording(monkeypatch, module):

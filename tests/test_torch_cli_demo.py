@@ -32,5 +32,7 @@ def test_both_demo_clis_write_the_same_tile(checkpoint, tmp_path):
   assert png.shape == want.shape == (5 * 256, 5 * 256, 3)
   l1 = float(np.abs(png.astype(np.int32) - want).mean())
   assert l1 < 1.0, l1
-  with pytest.raises(NotImplementedError, match="slice 8b"):
+  # A frozen TF graph (slice 8b) goes to eval/tf_model.py, which reads it
+  # (tests/test_torch_tf_model.py draws from one).
+  with pytest.raises(FileNotFoundError, match="model.pb"):
     demo.main(args[:2] + ["--checkpoint=model.pb", "--device=cpu"])

@@ -70,7 +70,8 @@ def run_ranks(tmp_path, module, job, inputs=None, world=WORLD, timeout=300,
   """Runs `module.job(rank, world, **inputs)` in `world` processes and
   returns their results in rank order. With `join` each process first
   joins a gloo group of `world` ranks through a file store; `env` adds
-  variables per rank (a function of the rank)."""
+  variables per rank (a function of the rank). The pickles that carry the
+  inputs and results are removed once read."""
   tmp = str(tmp_path)
   inputs_path = os.path.join(tmp, f"{job}_inputs.pkl")
   with open(inputs_path, "wb") as f:
@@ -103,6 +104,8 @@ def run_ranks(tmp_path, module, job, inputs=None, world=WORLD, timeout=300,
   for out in outs:
     with open(out, "rb") as f:
       results.append(pickle.load(f))
+  for path in outs + [inputs_path]:
+    os.unlink(path)
   return results
 
 

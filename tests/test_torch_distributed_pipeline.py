@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from test_torch_distributed import run_ranks
+from test_torch_saved_states import empty_older_states, remove_saved_states
 
 torch.set_num_threads(2)
 
@@ -184,7 +185,8 @@ def _train_dict(root, manifest, meshes_dir):
 
 def _recording(pipeline_cls, cpt_cls, record):
   """Patches the classes to record the scenes of each batch a rank's
-  loader gives and each checkpoint it saves."""
+  loader gives and each checkpoint it saves; a save empties the older
+  states (tests/test_torch_saved_states.py)."""
   real_loader = pipeline_cls._epoch_loader
   real_save = cpt_cls.save_state
 
@@ -195,7 +197,9 @@ def _recording(pipeline_cls, cpt_cls, record):
 
   def save_state(self, state, *args, **kwargs):
     record["saves"].append(state.global_step)
-    return real_save(self, state, *args, **kwargs)
+    path = real_save(self, state, *args, **kwargs)
+    empty_older_states(self.cpt_dir, path)
+    return path
 
   pipeline_cls._epoch_loader = epoch_loader
   cpt_cls.save_state = save_state
@@ -246,7 +250,8 @@ def _free_port():
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-  """2 steps through TrainPipeline, then 2 more through the CLI."""
+  """2 steps through TrainPipeline, then 2 more through the CLI; the
+  states are removed once the module's tests are done."""
   from helpers import make_fixture_dataset
   root = tmp_path_factory.mktemp("dist_train")
   manifest, meshes_dir = make_fixture_dataset(
@@ -263,7 +268,8 @@ def trained(tmp_path_factory):
       env=lambda rank: {"RANK": str(rank), "WORLD_SIZE": "2",
                         "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
                         "MASTER_PORT": str(port)})
-  return config_dict, first, resumed
+  yield config_dict, first, resumed
+  remove_saved_states(root)
 
 
 def _jax_batches(config_dict, rank, epoch):

@@ -137,8 +137,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_importing_every_port_module_loads_neither_jax_nor_pandas():
   """A fresh interpreter imports every module of the port: none of JAX, the
-  JAX package, pandas, PIL, msgpack or tensorboard gets loaded on the way
-  (the card's machine is not known to have the last four)."""
+  JAX package, pandas, PIL, msgpack, tensorboard, tensorflow or h5py gets
+  loaded on the way (the card's machine is not known to have the last
+  six)."""
   import subprocess
   import sys
   modules = sorted(
@@ -150,15 +151,21 @@ def test_importing_every_port_module_loads_neither_jax_nor_pandas():
           "corenet_tpu_torch.train.checkpoint",
           "corenet_tpu_torch.utils.summary",
           "corenet_tpu_torch.train.pipeline", "corenet_tpu_torch.cli.train",
-          "corenet_tpu_torch.cli.import_resnet50_checkpoint"} <= set(modules)
-  assert len(modules) > 45
+          "corenet_tpu_torch.cli.import_resnet50_checkpoint",
+          "corenet_tpu_torch.cc.native", "corenet_tpu_torch.utils.debug",
+          "corenet_tpu_torch.cli.preprocess_shapenet",
+          "corenet_tpu_torch.cli.generate_configs",
+          "corenet_tpu_torch.cli.import_corenet_checkpoint",
+          "corenet_tpu_torch.eval.tf_model",
+          "corenet_tpu_torch.cli.tf_model_eval"} <= set(modules)
+  assert len(modules) > 52
   code = (
       "import importlib, sys\n"
       f"for name in {modules!r}:\n"
       "  importlib.import_module(name)\n"
       "loaded = {m.split('.')[0] for m in sys.modules}\n"
       "bad = loaded & {'jax', 'jaxlib', 'flax', 'optax', 'corenet_tpu', "
-      "'pandas', 'PIL', 'msgpack', 'tensorboard'}\n"
+      "'pandas', 'PIL', 'msgpack', 'tensorboard', 'tensorflow', 'h5py'}\n"
       "assert not bad, bad\n")
   subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                  timeout=300)

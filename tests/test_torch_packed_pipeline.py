@@ -20,6 +20,8 @@ from corenet_tpu_torch.ops import phased_gt as phased
 from corenet_tpu_torch.train import pipeline
 from corenet_tpu_torch.utils import flags
 from helpers import make_fixture_dataset
+from test_torch_saved_states import (  # noqa: F401  (an autouse fixture)
+    remove_states_after_each_test)
 
 torch.set_num_threads(2)
 

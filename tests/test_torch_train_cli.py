@@ -36,11 +36,19 @@ from corenet_tpu_torch.train import pipeline
 from corenet_tpu_torch.utils import flags
 from helpers import make_fixture_dataset
 from test_torch_model import _variables
+from test_torch_saved_states import (  # noqa: F401  (an autouse fixture)
+    newest_state_only, remove_states_after_each_test)
 from test_torch_train_pipeline import BATCH, full_config_dict
 
 torch.set_num_threads(2)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTS = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS)
+_RUN_EMPTYING_OLDER_STATES = (
+    "import runpy, sys, test_torch_saved_states as s; "
+    "s.empty_older_states_on_save(); sys.argv[0] = 'train'; "
+    "runpy.run_module('corenet_tpu_torch.cli.train', run_name='__main__', "
+    "alter_sys=True)")
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +61,8 @@ def config_path(tmp_path_factory):
   path = os.path.join(root, "train.json5")
   with open(path, "w") as f:
     json.dump(data, f)
-  return path, data["output_path"]
+  with newest_state_only(root):
+    yield path, data["output_path"]
 
 
 def test_train_cli_trains_resumes_and_writes_what_jax_reads(config_path):
@@ -66,10 +75,11 @@ def test_train_cli_trains_resumes_and_writes_what_jax_reads(config_path):
   assert names == ["state_000000002.cpt"]
 
   # Resume in a fresh interpreter, as a user restarts: one more step, the
-  # eval at its start step 4.
-  env = dict(os.environ, PYTHONPATH=REPO)
+  # eval at its start step 4. The module runs as `python -m` runs it, with
+  # its older states emptied as the fixture's are.
+  env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, TESTS]))
   run = subprocess.run(
-      [sys.executable, "-m", "corenet_tpu_torch.cli.train",
+      [sys.executable, "-c", _RUN_EMPTYING_OLDER_STATES,
        f"--config_path={path}", "--max_steps=4", "--device=cpu"],
       cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
   assert run.returncode == 0, run.stderr[-3000:]
@@ -125,10 +135,13 @@ def test_flags_are_the_jax_clis(config_path):
 
 def test_train_cli_refusals(config_path, monkeypatch):
   path, _ = config_path
-  for extra, slice_name in (("--space=2", "slice 7b"),
-                            ("--gt_mode=host", "slice 8b")):
-    with pytest.raises(NotImplementedError, match=slice_name):
-      train_cli.main([f"--config_path={path}", "--device=cpu", extra])
+  with pytest.raises(NotImplementedError, match="slice 7b"):
+    train_cli.main([f"--config_path={path}", "--device=cpu", "--space=2"])
+  # --gt_mode=host (slice 8b) is ported (tests/test_torch_host_gt.py); an
+  # unknown mode is refused.
+  with pytest.raises(ValueError, match="gt_mode"):
+    train_cli.main([f"--config_path={path}", "--device=cpu",
+                    "--gt_mode=loader"])
   # --multihost joins a process group from torchrun's environment; without
   # one it raises, and no run goes on alone.
   monkeypatch.delenv("RANK", raising=False)

@@ -32,6 +32,8 @@ from corenet_tpu_torch import config as cfg
 from corenet_tpu_torch.train import pipeline
 from corenet_tpu_torch.utils import misc
 from helpers import make_fixture_dataset
+from test_torch_saved_states import (  # noqa: F401  (an autouse fixture)
+    newest_state_only, remove_states_after_each_test)
 
 torch.set_num_threads(2)
 
@@ -86,17 +88,20 @@ def dataset(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def trained(dataset):
-  """The pipeline after its 8 steps, with the fill audits it ran."""
+  """The pipeline after its 8 steps, with the fill audits it ran. Only
+  the newest of its states keeps its bytes, and none outlives the
+  module."""
   root, manifest, meshes_dir = dataset
   full = cfg.config_from_dict(
       cfg.TrainPipeline, full_config_dict(root, manifest, meshes_dir))
-  p = pipeline.TrainPipeline(full.train, full.output_path, device="cpu")
-  audits = []
-  real_audit = p.audit_static_fill
-  p.audit_static_fill = lambda: audits.append(real_audit()) or audits[-1]
-  evals = pipeline.RecurrentEvals(full.eval, full.output_path)
-  p.run(recurrent_evals=evals)
-  return p, full, audits
+  with newest_state_only(root):
+    p = pipeline.TrainPipeline(full.train, full.output_path, device="cpu")
+    audits = []
+    real_audit = p.audit_static_fill
+    p.audit_static_fill = lambda: audits.append(real_audit()) or audits[-1]
+    evals = pipeline.RecurrentEvals(full.eval, full.output_path)
+    p.run(recurrent_evals=evals)
+    yield p, full, audits
 
 
 class _Clock:
@@ -296,10 +301,12 @@ def test_refusals_name_their_slices(dataset, caplog):
   full = cfg.config_from_dict(
       cfg.TrainPipeline, full_config_dict(root, manifest, meshes_dir))
   out = os.path.join(root, "refused")
-  for kwargs, slice_name in ((dict(gt_mode="host"), "slice 8b"),
-                             (dict(mesh=object()), "slice 7b")):
-    with pytest.raises(NotImplementedError, match=slice_name):
-      pipeline.TrainPipeline(full.train, out, device="cpu", **kwargs)
+  with pytest.raises(NotImplementedError, match="slice 7b"):
+    pipeline.TrainPipeline(full.train, out, device="cpu", mesh=object())
+  # The host GT (slice 8b) is ported: the native C++ ground truth in the
+  # loader (tests/test_torch_host_gt.py).
+  assert pipeline.TrainPipeline(full.train, out, device="cpu",
+                                gt_mode="host").gt_mode == "host"
   with pytest.raises(ValueError, match="phase_loss"):
     pipeline.TrainPipeline(
         cfg.config_from_dict(cfg.TrainPipeline, full_config_dict(
