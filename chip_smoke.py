@@ -219,6 +219,23 @@ Phases; the run fails at the first that fails:
               the `.cpt` served on the card through cli/eval.py's
               load_model gives the directly loaded weights' PMF, bit for
               bit.
+  15. space   the 'space' axis (parallel/mesh.py::create_mesh, the
+              depth-sharded decoder): 2 gloo ranks on cuda:0 laid out as
+              data 1 × space 2, each a depth slab of the decoder (from
+              tower 2) on the same batch of 4 (phase 6's kind). (a) The
+              packed h7 step (pack_from_stage 5) in bf16 and float32, (b)
+              the fine h7 step in float32 (the fine halos), each against
+              one process on that batch with the same weights by phase
+              13 (b)'s rules: launches per rank (K1 4, its backward 3 + 1
+              packed or 4, K2 1, K3 1, K4 1), the collectives per step
+              (the data-parallel ones, 20 halo exchanges, 2 IoU sums over
+              the space group), both ranks' losses, statistics, gradients
+              and parameters after Adam bit-equal, 20 timed steps, the
+              peak memory per rank beside one process's and the memory
+              before and left by the decoder's forward. (c) TrainPipeline
+              with the layout at 32³ (cut from 128³ for time) for 4 steps:
+              the same batches on both ranks, launches, rank-0
+              checkpoints read back, equal weights.
 
 The float32 phases compute in float32: TF32 is switched off for
 convolutions and matmuls (phase 10 switches it on for its one TF32 row),
@@ -3500,11 +3517,12 @@ def dist_train_config(manifest, meshes_dir, root, name):
 
 
 def dist_worker_pipeline(torch, mods, rank, dev, root, config_path,
-                         max_steps):
+                         max_steps, space="1"):
   """(c) on one rank: TrainPipeline.run with its recurrent eval, recording
   the scenes of each batch, each checkpoint saved and each step's
-  launches."""
+  launches; with `space` > 1 (phase 15 (c)) on the data × space layout."""
   from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.parallel import mesh
   from corenet_tpu_torch.train import checkpoint
   from corenet_tpu_torch.train import pipeline as pipeline_mod
   torch.backends.cudnn.deterministic = True
@@ -3539,12 +3557,15 @@ def dist_worker_pipeline(torch, mods, rank, dev, root, config_path,
   pipeline_mod.make_train_step = counted_step
   with open(config_path) as f:
     full = cfg.config_from_dict(cfg.TrainPipeline, json.load(f))
-  p = pipeline_mod.TrainPipeline(full.train, full.output_path, device=dev)
+  p = pipeline_mod.TrainPipeline(full.train, full.output_path, device=dev,
+                                 mesh=mesh.create_mesh(space=int(space)))
   p.run(recurrent_evals=pipeline_mod.RecurrentEvals(full.eval,
                                                     full.output_path),
         max_steps=int(max_steps))
   record.update(global_step=p.state.global_step, fill_rounds=p.fill_rounds,
-                params_digest=params_digest(p.model))
+                params_digest=params_digest(p.model),
+                depth_shard=p.model.depth_shard,
+                shard_stage=p.model.decoder.shard_stage)
   return record
 
 
@@ -3717,7 +3738,8 @@ def dist_cli(manifest, meshes_dir, root):
 
 def dist_worker(argv) -> int:
   """`chip_smoke.py --dist-worker TASK TAG RANK WORLD ROOT ARGS...`: one
-  rank of phase 13 (b) or (c), joined over gloo on this process's card
+  rank of phase 13 (b) or (c) or of phase 15, joined over gloo on this
+  process's card
   (cuda:LOCAL_RANK); its result goes to ROOT/TAG_rankRANK.pt."""
   import torch
   from corenet_tpu_torch.ops import block_scatter as scatter
@@ -3732,7 +3754,8 @@ def dist_worker(argv) -> int:
   dev = mesh.initialize(backend="gloo", init_method="file://" + os.path.join(
       root, f"{tag}_store"), rank=rank, world_size=world, device="cuda")
   try:
-    work = {"step": dist_worker_step, "pipeline": dist_worker_pipeline}[task]
+    work = {"step": dist_worker_step, "pipeline": dist_worker_pipeline,
+            "space": space_worker_step}[task]
     result = work(torch, (op, fgbg, scatter, phased), rank, dev, root,
                   *argv[5:])
     torch.save(result, os.path.join(root, f"{tag}_rank{rank}.pt"))
@@ -4260,6 +4283,288 @@ def host_gt_phase(torch, mods, CoreNet, image, camera, dev):
   return out
 
 
+# Phase 15: the 'space' axis (parallel/mesh.py::create_mesh, the
+# depth-sharded decoder of models/decoder.py): DIST_WORLD gloo ranks on
+# cuda:0 laid out as data 1 × space DIST_WORLD, each a depth slab of the
+# decoder on the same batch of 4, against one process on that batch with
+# the same weights, by phase 13 (b)'s rules (float32: loss and statistics
+# within 1e-5, gradients by the step levels; bf16: the loss within
+# DIST_BF16_LOSS_TOL). (a) the packed h7 step (pack_from_stage 5) in bf16
+# and in float32, (b) the fine h7 step in float32 (the fine halos); each
+# with its launches per rank, its collectives, both ranks bit-equal, its
+# step time (TRAIN_RUNS steps, both ranks at once on the one card) and
+# its peak memory per rank beside one process's. (c) TrainPipeline at
+# DIST_RES with --space's layout for SPACE_STEPS steps.
+SPACE_CASES = (("packed bfloat16", "bfloat16", True),
+               ("packed float32", None, True),
+               ("fine float32", None, False))
+SPACE_STEPS = 4
+SPACE_SCENES = 5
+
+
+def space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
+               depth_shard=None):
+  """One h7 step from SEED + 160's weights on `batch`, then TRAIN_RUNS
+  timed steps: its figures, with the peak of memory allocated over both
+  above what was allocated before the model was made, and in the first
+  step the memory the decoder's forward leaves allocated (its saved
+  activations and logits) and what was allocated above the start when
+  it began (the GT's labels and the encoder's saved activations)."""
+  from corenet_tpu_torch.parallel import mesh
+  from corenet_tpu_torch.train.state import create_train_state
+  from corenet_tpu_torch.train.step import make_train_step
+  op = mods[0]
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  base = torch.cuda.memory_allocated(dev)
+  torch.cuda.reset_peak_memory_stats(dev)
+  model, _ = seeded_model(torch, CoreNet, config, SEED + 160,
+                          phase_output=True,
+                          compute_dtype=getattr(torch, dtype) if dtype
+                          else None, packed_decoder=packed,
+                          depth_shard=depth_shard)
+  state = create_train_state(model, device=dev)
+  step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
+                         voxelization_kwargs=H7_VOX)
+  backwards = []
+  marks = []
+  hooks = [model.decoder.register_forward_pre_hook(
+      lambda *_: marks.append(torch.cuda.memory_allocated(dev))),
+           model.decoder.register_forward_hook(
+               lambda *_: marks.append(torch.cuda.memory_allocated(dev)))]
+  torch.cuda.synchronize()
+  zero_counts(*mods)
+  count = mesh.collective_count
+  start = torch.cuda.memory_allocated(dev)
+  try:
+    with caught_calls(op, "skip_gather_backward", backwards):
+      (state, metrics), renorm = renorm_collectives(
+          torch, model, lambda: step(state, batch))
+      torch.cuda.synchronize()
+  finally:
+    for hook in hooks:
+      hook.remove()
+  out = {"decoder_forward_gib": (marks[1] - marks[0]) / 2**30,
+         "before_decoder_gib": (marks[0] - start) / 2**30,
+         "loss": float(metrics["loss"]), "launches": launch_counts(*mods),
+         "packed_order_backwards": sum(1 for args, _ in backwards
+                                       if args[0].dim() == 4),
+         "collectives": mesh.collective_count - count,
+         "renorm_collectives": renorm,
+         "shard_stage": model.decoder.shard_stage,
+         "global_step": state.global_step,
+         "grads": {n: p.grad.detach().float().cpu()
+                   for n, p in model.named_parameters()},
+         "stats": {n: b.detach().cpu() for n, b in model.named_buffers()},
+         "params_digest": params_digest(model)}
+  times = step_times(torch, step, state, batch)
+  out.update(step_ms=statistics.median(times), step_ms_each=times,
+             peak_gib=(torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+  del model, state, step, metrics
+  torch.cuda.empty_cache()
+  return out
+
+
+def space_worker_step(torch, mods, rank, dev, root, batch_path):
+  """Phase 15 (a) and (b) on one space rank: each case on its slab."""
+  from corenet_tpu_torch.models.corenet import CoreNetConfig, DecoderConfig
+  from corenet_tpu_torch.models.corenet import CoreNet
+  from corenet_tpu_torch.parallel import mesh
+  layout = mesh.create_mesh(space=DIST_WORLD)
+  batch = {k: v.to(dev) for k, v in torch.load(batch_path).items()}
+  config = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
+  out = {"layout": (layout.data, layout.space, mesh.space_index())}
+  for name, dtype, packed in SPACE_CASES:
+    result = space_step(torch, mods, CoreNet, config, batch, dtype, packed,
+                        dev, depth_shard=(mesh.space_index(), DIST_WORLD))
+    if rank != 0:  # rank 0's gradients stand for both (the digests)
+      result["grads_digest"] = tensors_digest(result.pop("grads").values())
+    out[name] = result
+  return out
+
+
+def space_steps(torch, mods, CoreNet, config, host_batch, dev, root):
+  """Phase 15 (a) and (b): each case in one process, then on DIST_WORLD
+  space ranks. Returns the figures."""
+  path = os.path.join(root, "space_batch.pt")
+  torch.save(host_batch, path)
+  batch = {k: v.to(dev) for k, v in host_batch.items()}
+  refs = {name: space_step(torch, mods, CoreNet, config, batch, dtype,
+                           packed, dev)
+          for name, dtype, packed in SPACE_CASES}
+  del batch
+  torch.cuda.empty_cache()
+  start = time.perf_counter()
+  ranks = run_dist_workers(torch, "space", "space", root, [path])
+  out = {"workers_s": time.perf_counter() - start}
+  failed = []
+  for name, dtype, packed in SPACE_CASES:
+    ref, got = refs[name], [r[name] for r in ranks]
+    stage = got[0]["shard_stage"]
+    # The data-parallel collectives (BatchRenorm's, the loss's mean and
+    # its backward, the gradients' one), the IoU's sums over the space
+    # group and their backward, and a halo exchange forward and backward
+    # for each of the two convolutions of every tower from the shard
+    # stage on.
+    halos = 2 * 2 * (7 - stage)
+    want = got[0]["renorm_collectives"] + 2 + 1 + 2 + halos
+    for rank, r in enumerate(got):
+      if (r["launches"] != (4, 4, 1, 1, 1)
+          or r["packed_order_backwards"] != (1 if packed else 0)
+          or r["global_step"] != BATCH or r["collectives"] != want
+          or r["shard_stage"] != 2):
+        raise AssertionError(
+            f"space {name} rank {rank} launched {r['launches']} "
+            f"({r['packed_order_backwards']} backward(s) in packed order), "
+            f"counted {r['global_step']}, made {r['collectives']} "
+            f"collectives (expected {want}), sharded from tower "
+            f"{r['shard_stage']}")
+    if not (got[0]["loss"] == got[1]["loss"]
+            and got[0]["params_digest"] == got[1]["params_digest"]
+            and tensors_digest(got[0]["grads"].values())
+            == got[1]["grads_digest"]
+            and all(torch.equal(v, got[1]["stats"][k])
+                    for k, v in got[0]["stats"].items())):
+      raise AssertionError(f"space {name}: the ranks' losses, statistics, "
+                           "gradients or parameters after Adam differ")
+    loss_rel = abs(got[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    stats_rel, stats_name = stats_gap(ref["stats"], got[0]["stats"])
+    together, worst, worst_name, cosine, cosine_name, checked = grad_gap(
+        ref["grads"], got[0]["grads"])
+    levels = grad_levels(ref["grads"], got[0]["grads"])
+    if dtype is None:
+      ok = (loss_rel <= DIST_LOSS_TOL and stats_rel <= DIST_STATS_TOL
+            and levels[0] >= 0.96 and levels[1] >= 0.90
+            and levels[2] <= 0.05)
+      rule = (f"loss {DIST_LOSS_TOL}, statistics {DIST_STATS_TOL}, "
+              "gradients cosine ≥ 0.96 together, ≥ 0.90 each, 5 % next to "
+              "the loss")
+    else:
+      ok = loss_rel <= DIST_BF16_LOSS_TOL
+      rule = f"loss {DIST_BF16_LOSS_TOL}"
+    figures = {
+        "loss": ref["loss"], "loss_rel": loss_rel, "stats_rel": stats_rel,
+        "worst_stat": stats_name, "grads_together_rel": together,
+        "worst_grad_rel": worst, "worst_grad": worst_name,
+        "lowest_cosine": cosine, "lowest_cosine_grad": cosine_name,
+        "grads_checked": checked, "global_cosine": levels[0],
+        "lowest_massive_cosine": levels[1],
+        "near_loss_worst_rel": levels[2],
+        "launches": [r["launches"] for r in got],
+        "packed_order_backwards": got[0]["packed_order_backwards"],
+        "collectives_per_step": got[0]["collectives"],
+        "halo_collectives_per_step": halos, "shard_stage": stage,
+        "one_process_step_ms": ref["step_ms"],
+        "rank_step_ms": [r["step_ms"] for r in got],
+        "one_process_peak_gib": ref["peak_gib"],
+        "rank_peak_gib": [r["peak_gib"] for r in got],
+        "one_process_decoder_forward_gib": ref["decoder_forward_gib"],
+        "rank_decoder_forward_gib": got[0]["decoder_forward_gib"],
+        "one_process_before_decoder_gib": ref["before_decoder_gib"],
+        "rank_before_decoder_gib": got[0]["before_decoder_gib"], "ok": ok}
+    out[name] = figures
+    log(f"space ({'a' if packed else 'b'}) h7 {name} on data 1 × space "
+        f"{DIST_WORLD} (gloo ranks on cuda:0, sharded from tower {stage}) "
+        f"against one process on the same 4 scenes: loss "
+        f"{ref['loss']:.7f}, {loss_rel:.2e} relative; statistics "
+        f"{stats_rel:.2e} ({stats_name}); gradients together "
+        f"{together:.2e}, worst {worst:.2e} ({worst_name}), levels: cosine "
+        f"together {levels[0]:.6f}, lowest {levels[1]:.6f}, next to the "
+        f"loss {levels[2]:.2e}; launches per rank {figures['launches']} "
+        f"({got[0]['packed_order_backwards']} backward(s) in packed order); "
+        f"{got[0]['collectives']} collectives per step, {halos} of them "
+        f"halo exchanges and 2 IoU sums over the space group; both ranks' "
+        f"losses, statistics, gradients and parameters after Adam "
+        f"bit-equal; step (median of {TRAIN_RUNS}) {ref['step_ms']:.3f} ms "
+        f"in one process, per rank {figures['rank_step_ms']} ms; peak "
+        f"memory {ref['peak_gib']:.3f} GiB in one process, per rank "
+        f"{[round(g, 3) for g in figures['rank_peak_gib']]} GiB (allocated "
+        f"when the decoder's forward began {ref['before_decoder_gib']:.3f} "
+        f"and {got[0]['before_decoder_gib']:.3f} GiB, left by it "
+        f"{ref['decoder_forward_gib']:.3f} and "
+        f"{got[0]['decoder_forward_gib']:.3f} GiB: one process and rank 0); "
+        f"rule: {rule}: " + ("passed" if ok else "FAILED"))
+    if not ok:
+      failed.append(name)
+  log(f"space (a, b): the two ranks' processes took {out['workers_s']:.1f} s")
+  if failed:
+    raise AssertionError(f"space steps outside their rules: {failed}")
+  return out
+
+
+def space_pipeline(torch, mods, dev, root):
+  """Phase 15 (c): TrainPipeline on DIST_WORLD gloo ranks on cuda:0 laid
+  out as data 1 × space DIST_WORLD (mesh=create_mesh(space=...)), at
+  DIST_RES in bf16 with the phase loss, a batch of 1, SPACE_STEPS steps
+  and no eval: both ranks train on the same batches, the epoch in the
+  dataset's order, with the step's launches; rank 0 alone writes the
+  checkpoints (the initial state and the last step's), which read back
+  at the last step; both ranks end with the same weights. Returns the
+  figures."""
+  from corenet_tpu_torch import config as cfg
+  from corenet_tpu_torch.data.manager import DatasetManager
+  from corenet_tpu_torch.train import checkpoint
+  manifest, meshes_dir = write_eval_dataset(
+      os.path.join(root, "space_ds"), SEED + 170, scenes=SPACE_SCENES)
+  full = dist_train_config(manifest, meshes_dir, root, "space_out")
+  full["eval"] = []
+  path = os.path.join(root, "space_train.json")
+  with open(path, "w") as f:
+    json.dump(full, f)
+  start = time.perf_counter()
+  ranks = run_dist_workers(torch, "pipeline", "space_pipeline", root,
+                           [path, SPACE_STEPS, DIST_WORLD])
+  seconds = time.perf_counter() - start
+  dataset = DatasetManager(cfg.config_from_dict(
+      cfg.TrainPipeline, full).train.data).create_dataset(local_seed=0)
+  want = [[dataset[i].scene_id] for i in range(SPACE_STEPS)]
+  for rank, r in enumerate(ranks):
+    if (r["batches"] != want or r["depth_shard"] != (rank, DIST_WORLD)
+        or set(r["launches"]) != {(4, 4, 1, 1, 1)}
+        or len(r["launches"]) != SPACE_STEPS
+        or r["global_step"] != SPACE_STEPS or r["fill_rounds"] != 6):
+      raise AssertionError(
+          f"space (c) rank {rank}: batches {r['batches']} (want {want}), "
+          f"slab {r['depth_shard']}, launches {r['launches']}, global step "
+          f"{r['global_step']}, fill rounds {r['fill_rounds']}")
+  if not (ranks[0]["saves"] == [0, SPACE_STEPS] and ranks[1]["saves"] == []
+          and ranks[0]["params_digest"] == ranks[1]["params_digest"]):
+    raise AssertionError(f"space (c): saves {ranks[0]['saves']} and "
+                         f"{ranks[1]['saves']}, or the ranks' weights differ")
+  reader = checkpoint.CheckpointReader(
+      os.path.join(full["output_path"], "cpt"))
+  state, _, cpt_path = reader.read_last_checkpoint()
+  if int(state.global_step) != SPACE_STEPS:
+    raise AssertionError(f"space (c): {cpt_path} holds global step "
+                         f"{state.global_step}")
+  log(f"space (c) TrainPipeline on data 1 × space {DIST_WORLD} (gloo ranks "
+      f"on cuda:0) at {DIST_RES[0]}³ in bf16, sharded from tower "
+      f"{ranks[0]['shard_stage']}: both ranks trained on {want}; launches "
+      f"per step (4, 4, 1, 1, 1); checkpoints by rank 0 only at 0 and "
+      f"{SPACE_STEPS}, the last read back at step {SPACE_STEPS}; weights "
+      f"equal; {seconds:.1f} s")
+  return {"seconds": seconds, "batches": want,
+          "launches": ranks[0]["launches"][0],
+          "shard_stage": ranks[0]["shard_stage"]}
+
+
+def space_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
+                camera, dev):
+  """Phase 15: the 'space' axis. Returns the figures."""
+  h7 = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
+  start = time.perf_counter()
+  host, _ = triangle_batch(torch, image, camera, SEED + 161)
+  with tempfile.TemporaryDirectory() as root:
+    out = {"steps": space_steps(torch, mods, CoreNet, h7, host, dev, root)}
+    steps_s = time.perf_counter() - start
+    out["c"] = space_pipeline(torch, mods, dev, root)
+  out["seconds"] = time.perf_counter() - start
+  out["part_seconds"] = {"a, b": steps_s, "c": out["seconds"] - steps_s}
+  log(f"space phase: {out['seconds']:.1f} s ((a, b) {steps_s:.1f} s, (c) "
+      f"{out['seconds'] - steps_s:.1f} s)")
+  return out
+
+
 def main() -> int:
   smoke_start = time.perf_counter()
   import torch
@@ -4501,6 +4806,11 @@ def main() -> int:
   # 14. Ground truth on the host (native C++ in the loader), the dataset
   # tool and the importer.
   host_gt = host_gt_phase(torch, mods, CoreNet, image, camera, dev)
+  torch.cuda.empty_cache()
+
+  # 15. The 'space' axis: the decoder's depth over 2 gloo ranks.
+  space = space_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
+                      image, camera, dev)
 
   # Launches per path, each counted from zero just before the path ran:
   # one serving forward, one training step, one eval run of 3 batches, one
@@ -4531,7 +4841,12 @@ def main() -> int:
             "TrainPipeline on 2 gloo ranks at 32³, rank 0, 1 step":
                 dist["c"]["launches"][i],
             "h7 TrainPipeline packed bf16 on host GT, 1 step":
-                host_gt["train"]["host"]["launches"][i]}
+                host_gt["train"]["host"]["launches"][i],
+            **{f"h7 train {name} on data 1 × space {DIST_WORLD}, rank "
+               f"{rank}, 1 step": space["steps"][name]["launches"][rank][i]
+               for name, _, _ in SPACE_CASES for rank in range(DIST_WORLD)},
+            f"TrainPipeline on data 1 × space {DIST_WORLD} at 32³, rank 0, "
+            "1 step": space["c"]["launches"][i]}
 
   h7_sums = per_forward["h7"]
   entry = {
@@ -4660,6 +4975,7 @@ def main() -> int:
                         if k != "losses"}
   entry["distributed"] = dist
   entry["host_gt"] = host_gt
+  entry["space"] = space
   log(f"h7 scenes/s {h7_serve['scenes_per_s']:.3f}; y1 scenes/s "
       f"{y1_serve['scenes_per_s']:.3f} (median of {SERVE_RUNS} forwards); h7 "
       f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
@@ -4673,7 +4989,7 @@ def main() -> int:
       f" on host GT, y1 {BATCH * 1e3 / bf16['y1']['median_ms']:.3f}; h7 "
       f"float32 with TF32 "
       f"{BATCH * 1e3 / bf16['h7_gt_tf32']['median_ms']:.3f}")
-  log(f"smoke: all 14 phases in {time.perf_counter() - smoke_start:.1f} s")
+  log(f"smoke: all 15 phases in {time.perf_counter() - smoke_start:.1f} s")
   log(smi)
   log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries
                   + packed_entries}))

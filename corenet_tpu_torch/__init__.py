@@ -31,9 +31,10 @@ counterpart is the file of the same path there:
   viz/       cameras, isosurfaces, artifacts and tiles on the host; the
              mesh rasterizer and voxel raycaster as tensor code on the
              device
-  parallel/  data parallelism over processes: the process group, the
-             differentiable all-reduce, gradient averaging, host
-             reductions over gloo
+  parallel/  data parallelism over processes and the 'space' axis: the
+             process group and its (data, space) layout, the
+             differentiable all-reduce and halo exchange, gradient
+             averaging, host reductions over gloo
   cli/       the train, eval, demo and frozen-graph eval entry points
              (python -m ...), the retry launcher, the dataset and config
              tools, the checkpoint and encoder importers
@@ -53,8 +54,11 @@ package's space-to-depth execution) in each. float32 or bf16 compute
 (`compute_dtype`). Training and evaluation data parallel over processes,
 one per device (`parallel/`, torch.distributed under torchrun: global
 BatchRenorm statistics and loss, averaged gradients, sharded loaders,
-rank-0 checkpoints, cross-rank eval metrics). Public functions keep the
-JAX package's channel-last layouts.
+rank-0 checkpoints, cross-rank eval metrics), and training with the
+decoder's depth sharded over space ranks (`parallel.mesh.create_mesh`,
+`CoreNet(depth_shard=...)`: halo exchanges, per-scene loss sums over the
+space group). Public functions keep the JAX package's channel-last
+layouts.
 Ground truth on the host (`gt_mode="host"`: the C++ ops in the loader)
 trains as the JAX package's does.
 Nothing here imports JAX, corenet_tpu, pandas, msgpack, tensorboard,

@@ -22,9 +22,15 @@ batch size is per process), under the retry supervisor if wanted:
 (parallel/mesh.py: NCCL on cards, gloo with --device=cpu), trains on
 cuda:LOCAL_RANK, and logs each rank to <output_path>/logs/.
 
+--space=N lays the processes out as data × N (parallel/mesh.py): the N
+space ranks of each data group train one depth slab each of the decoder
+on the same batches; N must divide the number of processes. Each rank
+needs its own process, so --space > 1 comes with --multihost:
+  python -m torch.distributed.run --standalone --nproc_per_node=2 \\
+      -m corenet_tpu_torch.cli.train --multihost --space=2 ...
+
 --gt_mode=host voxelizes the ground truth with the native C++ ops in the
-loader's producer thread, overlapping the step. Not ported yet, and
-refused with its slice: --space > 1 (slice 7b). --compilation_cache_dir
+loader's producer thread, overlapping the step. --compilation_cache_dir
 is XLA's and has no effect here. The recurrent evals decode with the fine decoder whatever
 --decoder_execution trains (train/pipeline.py).
 """
@@ -64,8 +70,9 @@ class ProgramArgs:
       "Join the process group from torchrun's environment: one process "
       "per device, data parallel", default=False)
   space: int = flags.flag(
-      "Size of the 'space' mesh axis; only 1 is ported (slice 7b brings "
-      "more)", default=1)
+      "Size of the 'space' mesh axis: shards the voxel grid's depth axis"
+      " across processes (spatial partitioning of the 3D decoder;"
+      " processes / space become the 'data' axis)", default=1)
   gt_mode: str = flags.flag(
       "GT generation: 'device' (in the step) or 'host' (native C++ in the "
       "loader's producer thread)", default="device")
@@ -108,12 +115,12 @@ def main(argv=None) -> TrainPipeline:
              "%(message)s")
   args = flags.parse_flags(ProgramArgs, argv)
   checked_device(args.device)
+  if args.space > 1 and not args.multihost:
+    raise ValueError(f"--space={args.space} does not divide the world size "
+                     "1: without --multihost one process trains")
   if args.compilation_cache_dir:
     log.info("--compilation_cache_dir=%s has no effect: it is XLA's",
              args.compilation_cache_dir)
-  if args.space > 1:
-    raise NotImplementedError("--space > 1 (spatial partitioning of the "
-                              "decoder) is slice 7b of the port")
   if args.phase_loss not in ("auto", "on", "off"):
     raise ValueError(f"--phase_loss must be auto, on or off, got "
                      f"{args.phase_loss!r}")
@@ -134,8 +141,9 @@ def main(argv=None) -> TrainPipeline:
 
 
 def _train(args: ProgramArgs, config, device) -> TrainPipeline:
+  layout = mesh.create_mesh(space=args.space)
   pipeline = TrainPipeline(
-      config.train, config.output_path,
+      config.train, config.output_path, mesh=layout,
       extra_metadata={"train_config": config_to_dict(config.train),
                       "full_config": config_to_dict(config)},
       gt_mode=args.gt_mode, gt_algorithm=args.gt_algorithm,

@@ -57,6 +57,12 @@ class CoreNet(nn.Module):
   same parameters and function. Like phase_output, it changes execution,
   not the state_dict.
 
+  depth_shard: (index, count) = this process computes depth slab `index`
+  of `count` of the decoder (models/decoder.py), for the 'space' axis
+  (parallel/mesh.py): the logits are that slab. None (or count 1) = the
+  whole grid. Like phase_output, it changes execution, not the
+  state_dict.
+
   compute_dtype: None = float32 everywhere; torch.bfloat16 = convolutions
   and matmuls in bf16 with float32 parameters, statistics, parameter
   gradients and fine logits (phase-major logits stay bf16). Like
@@ -66,6 +72,7 @@ class CoreNet(nn.Module):
   def __init__(self, config: CoreNetConfig, phase_output: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
                packed_decoder: bool = False, pack_from_stage: int = 5,
+               depth_shard: Optional[Tuple[int, int]] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
@@ -90,8 +97,10 @@ class CoreNet(nn.Module):
         phase_output=phase_output,
         packed=packed_decoder,
         pack_from_stage=pack_from_stage,
+        depth_shard=depth_shard,
         compute_dtype=compute_dtype,
         device=device)
+    self.depth_shard = self.decoder.depth_shard
 
   def reset_parameters(self, generator: torch.Generator) -> None:
     """The JAX package's initializers (models/layers.py), drawn from a CPU

@@ -29,6 +29,20 @@ input_groups and phase_groups; the per-phase interleave needs neither,
 so the port has neither, and costs the same single copy as the fine
 concatenation.
 
+`depth_shard` = (index, count) shards the decoder's depth over `count`
+space ranks (parallel/mesh.py's 'space' axis; None or count 1: the whole
+grid, the unsharded decoder). Each rank computes the depth slab `index`
+of every activation, skip and logit from the shard stage on, the first
+tower whose input depth per rank (packed cells when the tower is packed)
+is a whole number and at least every depth halo of that tower and of
+every later one; the seed and the earlier towers run whole on every rank,
+and the slab is cut off at the shard stage's input. The sharded layers
+take their depth halos from the neighbouring ranks (models/layers.py),
+the skips sample the slab's voxels only (models/skip.py), and the logits
+are the slab: [B, D/count, H, W, C], or phase-major [B, D/(2·count), …]
+and packed [B, D/(4·count), …], fine-contiguous either way. A resolution
+that gives no such stage is refused.
+
 `compute_dtype` (None = float32; torch.bfloat16) runs every convolution,
 the latent linear layer and the skips' compressions in that dtype, as the
 JAX decoder does: the latent returns to float32 before stage 1's
@@ -54,6 +68,7 @@ from corenet_tpu_torch.models import layers, packing
 from corenet_tpu_torch.models.batch_renorm import BatchRenorm
 from corenet_tpu_torch.models.resnet50 import ResNet50Features
 from corenet_tpu_torch.models.skip import SampleGrid2d
+from corenet_tpu_torch.parallel import mesh
 
 # Towers: (stage, conv features, conv kernel, transposed-conv features,
 # its kernel, padding, output padding); strides are 2, the last tower's
@@ -97,6 +112,31 @@ def require_packed_eligible(resolution: Tuple[int, int, int],
         f"seed grid {seed})")
 
 
+def shard_stage(seed_depth: int, count: int, last_upscale_factor: int,
+                pack_from_stage: int) -> int:
+  """The first tower (2–6) whose input depth per rank, in packed cells
+  from pack_from_stage on, is whole over `count` space ranks and at least
+  every depth halo of that tower and of every later one (module
+  docstring); ValueError if there is none."""
+  halos = {}
+  for stage, _, conv_k, _, t_k, t_pad, _ in _TOWERS:
+    packed = stage >= pack_from_stage
+    stride = last_upscale_factor if stage == 6 else 2
+    halos[stage] = max(
+        layers.conv_depth_halo(conv_k, packed)
+        + layers.conv_transpose_depth_halo(t_k, t_pad, stride, packed))
+  for stage in halos:
+    depth = seed_depth * 2 ** (stage - 2)
+    if stage >= pack_from_stage:
+      depth //= 2
+    if depth % count == 0 and depth // count >= max(
+        halo for later, halo in halos.items() if later >= stage):
+      return stage
+  raise ValueError(f"a decoder of seed depth {seed_depth} has no tower "
+                   f"whose input depth splits into {count} whole slabs as "
+                   f"deep as its halos")
+
+
 class ReconstructionDecoder(nn.Module):
 
   def __init__(self, resolution: Tuple[int, int, int],
@@ -104,6 +144,7 @@ class ReconstructionDecoder(nn.Module):
                latent_channels: int = 64, skip_fraction: float = 0.75,
                phase_output: bool = False, packed: bool = False,
                pack_from_stage: int = 5,
+               depth_shard: Optional[Tuple[int, int]] = None,
                compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
@@ -123,6 +164,13 @@ class ReconstructionDecoder(nn.Module):
                               pack_from_stage)
     self.packed = packed
     self.pack_from_stage = pack_from_stage if packed else 7
+    index, count = depth_shard or (0, 1)
+    if not 0 <= index < count:
+      raise ValueError(f"depth_shard {depth_shard} is not (index, count) "
+                       "with 0 ≤ index < count")
+    self.depth_shard = (index, count)
+    self.shard_stage = (7 if count == 1 else shard_stage(
+        ir[0], count, last_upscale_factor, self.pack_from_stage))
 
     self.skip_channels = {}
     if round(16 * skip_fraction) != 0:
@@ -144,25 +192,28 @@ class ReconstructionDecoder(nn.Module):
       stride = last_upscale_factor if stage == 6 else 2
       t_out = num_output_channels if t_out is None else t_out
       tp = stage >= self.pack_from_stage
+      sharded = stage >= self.shard_stage
       phases = 8 if tp else 1
       self.add_module(f"stage_{stage}_bn1", BatchRenorm(
           channels, phase_packing=phases, device=device))
       self.add_module(f"stage_{stage}_c", layers.Conv(
           channels, conv_c, conv_k, ndim=3, padding=conv_k // 2,
-          packed_io=tp, **cd))
+          packed_io=tp, depth_sharded=sharded, **cd))
       self.add_module(f"stage_{stage}_bn2", BatchRenorm(
           conv_c, phase_packing=phases, device=device))
       self.add_module(f"stage_{stage}_t", layers.ConvTranspose(
           conv_c, t_out, t_k, ndim=3, stride=stride, padding=t_pad,
           output_padding=t_op, phase_output=phase_output and stage == 6,
-          packed_io=tp, **cd))
+          packed_io=tp, depth_sharded=sharded, **cd))
       channels = t_out
       layer_res = tuple(v * stride for v in layer_res)
       if stage in self.skip_channels:
         src_c = _SKIPS[stage][2]
+        slab = layer_res[0] // count
         self.add_module(f"rt_skip_{stage}", SampleGrid2d(
             src_c + 3, self.skip_channels[stage], layer_res, packed=tp,
-            **cd))
+            depth_range=((index * slab, (index + 1) * slab) if sharded
+                         else None), **cd))
         channels += self.skip_channels[stage]
         # The skip's voxel → screen matrix is M @ diag(r, 1) with
         # r = resolution / layer resolution, divided in float32 as JAX
@@ -177,6 +228,10 @@ class ReconstructionDecoder(nn.Module):
   def _tower(self, x: torch.Tensor, stage: int) -> torch.Tensor:
     if stage == self.pack_from_stage:
       x = packing.space_to_depth(x)
+    if stage == self.shard_stage:
+      index, count = self.depth_shard
+      slab = x.shape[2] // count
+      x = x.narrow(2, index * slab, slab)
     x = getattr(self, f"stage_{stage}_bn1")(F.relu(x))
     x = getattr(self, f"stage_{stage}_c")(x)
     x = getattr(self, f"stage_{stage}_bn2")(F.relu(x))
@@ -209,6 +264,13 @@ class ReconstructionDecoder(nn.Module):
   def forward(self, image_features: ResNet50Features,
               voxel_projection_matrix: torch.Tensor,
               voxel_sample_locations: torch.Tensor) -> torch.Tensor:
+    index, count = self.depth_shard
+    if count > 1 and (mesh.space_index(), mesh.space_count()) != (index,
+                                                                  count):
+      raise RuntimeError(
+          f"the decoder holds depth slab {index} of {count}, but this rank "
+          f"is space rank {mesh.space_index()} of {mesh.space_count()} "
+          "(parallel.mesh.create_mesh)")
     imf = image_features
     x = self.stage_0(imf.global_average_2048).float()
     x = torch.cat([x, voxel_sample_locations], dim=-1)

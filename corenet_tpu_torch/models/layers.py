@@ -22,6 +22,15 @@ convolution runs as torch's `conv_transpose`, the JAX package's
 `method="dilated"`; its per-phase lowerings are not ported (ROADMAP.md
 §3).
 
+`depth_sharded` (3D; the 'space' axis, parallel/mesh.py) runs a
+convolution or a transposed convolution on this space rank's slab of the
+depth (dim 2): its depth padding is the neighbouring ranks' boundary
+slices (`mesh.halo_exchange`, the halos of `depth_halo`) instead of
+zeros, the other axes keep theirs, and the output is the same slab of the
+whole grid's output, packed or fine. The convolution keeps the depth
+(stride 1, padding k // 2) and the transposed convolution multiplies it
+by its stride; `phase_output` shards the phase-major depth.
+
 `reset_parameters(generator)` reproduces the JAX package's initializers:
 torch's default U(±1/√fan_in) for kernels and biases, kaiming-normal
 (fan_in, relu; truncated at two standard deviations, as flax's
@@ -41,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from corenet_tpu_torch.models import packing
+from corenet_tpu_torch.parallel import mesh
 
 IntOrTuple = Union[int, Tuple[int, ...]]
 
@@ -75,17 +85,37 @@ def _kaiming_normal_(param: torch.Tensor, fan_in: int,
   param.copy_(values)
 
 
+def conv_depth_halo(k: int, packed: bool) -> Tuple[int, int]:
+  """(below, above): the depth slices (packed cells when `packed`) of the
+  neighbouring slabs that a depth-sharded convolution of kernel k, stride
+  1 and padding k // 2 reads."""
+  return (packing.packed_depth_halo(k, k // 2, False) if packed
+          else (k // 2, k // 2))
+
+
+def conv_transpose_depth_halo(k: int, p: int, s: int, packed: bool
+                              ) -> Tuple[int, int]:
+  """(below, above) for a depth-sharded transposed convolution of kernel
+  k, padding p and stride s (2 when `packed`): fine output n reads the
+  inputs i with 0 ≤ n + p − s·i < k."""
+  if packed:
+    return packing.packed_depth_halo(k, p, True)
+  return (k - 1 - p) // s, (p - 1 + s) // s
+
+
 class Conv(nn.Module):
   """N-d convolution (N = 2 or 3) with symmetric integer padding.
 
   packed_io (3D, stride 1, padding k // 2): packed input and output
-  (models/packing.py::packed_conv)."""
+  (models/packing.py::packed_conv). depth_sharded (3D, stride 1, padding
+  k // 2 along the depth): the input is a depth slab (module
+  docstring)."""
 
   def __init__(self, in_features: int, features: int,
                kernel_size: IntOrTuple, ndim: int, stride: IntOrTuple = 1,
                padding: IntOrTuple = 0,
                kernel_init_mode: str = "torch_default",
-               packed_io: bool = False,
+               packed_io: bool = False, depth_sharded: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
@@ -101,7 +131,13 @@ class Conv(nn.Module):
                       or self.padding != (k[0] // 2,) * 3):
       raise ValueError("packed_io needs a 3D convolution of stride 1 with "
                        "a cubic kernel and padding k // 2")
+    if depth_sharded and (ndim != 3 or self.stride[0] != 1
+                          or 2 * self.padding[0] != k[0] - 1):
+      raise ValueError("depth_sharded needs a 3D convolution of stride 1 "
+                       "and padding k // 2 along the depth")
     self.packed_io = packed_io
+    self.depth_sharded = depth_sharded
+    self.depth_halo = conv_depth_halo(k[0], packed_io)
     self.kernel_init_mode = kernel_init_mode
     self.compute_dtype = compute_dtype
     self.fan_in = in_features * math.prod(k)
@@ -120,10 +156,16 @@ class Conv(nn.Module):
     if self.packed_io:
       return self._packed(x)
     conv = F.conv2d if self.ndim == 2 else F.conv3d
+    padding = self.padding
+    if self.compute_dtype is not None:
+      x = x.to(self.compute_dtype)
+    if self.depth_sharded:
+      x = mesh.halo_exchange(x, 2, *self.depth_halo)
+      padding = (0,) + padding[1:]
     if self.compute_dtype is None:
-      return conv(x, self.weight, self.bias, self.stride, self.padding)
-    y = conv(x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
-             None, self.stride, self.padding)
+      return conv(x, self.weight, self.bias, self.stride, padding)
+    y = conv(x, self.weight.to(self.compute_dtype), None, self.stride,
+             padding)
     bias = self.bias.view((-1,) + (1,) * self.ndim)
     return (y.float() + bias).to(y.dtype)
 
@@ -132,9 +174,11 @@ class Conv(nn.Module):
     # the tiled bias is cast after tiling, as the JAX layer casts it.
     bias = self.bias.repeat(8)
     if self.compute_dtype is None:
-      return packing.packed_conv(x, self.weight, self.padding[0], bias)
+      return packing.packed_conv(x, self.weight, self.padding[0], bias,
+                                 self.depth_sharded)
     y = packing.packed_conv(x.to(self.compute_dtype), self.weight,
-                            self.padding[0])
+                            self.padding[0],
+                            depth_sharded=self.depth_sharded)
     return y + bias.to(y.dtype).view(-1, 1, 1, 1)
 
 
@@ -150,12 +194,16 @@ class ConvTranspose(nn.Module):
   in channel order (rm0, rm1, rm2, pz, py, px, f), fine index
   4·coarse + 2·rm + phase per axis. The same parameters either way; the
   JAX package's layouts for consumers that do not depend on voxel order
-  (the training loss)."""
+  (the training loss).
+
+  depth_sharded (3D, an output of stride × the input along the depth): the
+  input is a depth slab (module docstring)."""
 
   def __init__(self, in_features: int, features: int,
                kernel_size: IntOrTuple, ndim: int, stride: IntOrTuple = 1,
                padding: IntOrTuple = 0, output_padding: IntOrTuple = 0,
                phase_output: bool = False, packed_io: bool = False,
+               depth_sharded: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
@@ -178,6 +226,14 @@ class ConvTranspose(nn.Module):
     self.stride = _tuple(stride, ndim)
     self.padding = _tuple(padding, ndim)
     self.output_padding = _tuple(output_padding, ndim)
+    s, p = self.stride[0], self.padding[0]
+    if depth_sharded and (
+        ndim != 3 or k[0] + self.output_padding[0] - 2 * p != s):
+      raise ValueError("depth_sharded needs a 3D transposed convolution "
+                       "whose output depth is stride × its input's")
+    self.depth_sharded = depth_sharded
+    self.kernel_size = k
+    self.depth_halo = conv_transpose_depth_halo(k[0], p, s, packed_io)
     # torch counts a ConvTranspose's fan_in over its output channels.
     self.fan_in = features * math.prod(k)
     self.weight = nn.Parameter(
@@ -199,15 +255,20 @@ class ConvTranspose(nn.Module):
       y = packing.packed_conv_transpose(
           xc, self.weight, self.padding[0], self.output_padding[0],
           phase_output=self.phase_output,
-          bias=self.bias.repeat(64) if dtype is None else None)
+          bias=self.bias.repeat(64) if dtype is None else None,
+          depth_sharded=self.depth_sharded)
       if dtype is not None:
         reps = 64 if self.phase_output else 8
         y = y + self.bias.repeat(reps).to(dtype).view(-1, 1, 1, 1)
       return y.permute(0, 2, 3, 4, 1) if self.phase_output else y
     weight = self.weight if dtype is None else self.weight.to(dtype)
-    conv_t = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
-    y = conv_t(xc, weight, self.bias if dtype is None else None,
-               self.stride, self.padding, self.output_padding)
+    bias = self.bias if dtype is None else None
+    if self.depth_sharded:
+      y = self._depth_sharded(xc, weight, bias)
+    else:
+      conv_t = F.conv_transpose2d if self.ndim == 2 else F.conv_transpose3d
+      y = conv_t(xc, weight, bias, self.stride, self.padding,
+                 self.output_padding)
     if dtype is not None:
       y = y + self.bias.to(y.dtype).view((-1,) + (1,) * self.ndim)
     if not self.phase_output:
@@ -216,6 +277,26 @@ class ConvTranspose(nn.Module):
     y = y.reshape(b, f, d // 2, 2, h // 2, 2, w // 2, 2)
     return y.permute(0, 2, 4, 6, 3, 5, 7, 1).reshape(
         b, d // 2, h // 2, w // 2, 8 * f)
+
+
+  def _depth_sharded(self, x, weight, bias):
+    """The fine transposed convolution of a depth slab: the input with its
+    halos, unpadded along the depth, gives s·lo + p output rows before
+    the slab's first and s·(hi − 1) + k − p after its last. torch's
+    padding crops both ends alike, up to the layer's own padding, and the
+    rest is cut: torch's CPU float32 weight gradient is garbage for some
+    pairs of a larger padding and the depth (a padding of 5 at depths 5
+    and 6 on one thread)."""
+    s, p = self.stride[0], self.padding[0]
+    lo, hi = self.depth_halo
+    slab = x.shape[2]
+    x = mesh.halo_exchange(x, 2, lo, hi)
+    below, above = s * lo + p, s * (hi - 1) + self.kernel_size[0] - p
+    crop = min(below, above, p)
+    y = F.conv_transpose3d(x, weight, bias, self.stride,
+                           (crop,) + self.padding[1:],
+                           (0,) + self.output_padding[1:])
+    return y.narrow(2, below - crop, s * slab)
 
 
 class Linear(nn.Module):

@@ -20,6 +20,14 @@ those means are taken over the global batch, the mean of the ranks'
 means of equal shards: every rank returns the loss of the global batch,
 and the products of the SEMANTIC losses multiply global means, as the
 JAX package's losses do over its sharded batch.
+
+Under the 'space' axis (parallel/mesh.py) the labels and logits are this
+rank's depth slab of each scene. The cross-entropy's mean over voxels
+needs nothing more (every rank holds an equal share), but the IoU is a
+ratio per scene: each scene's intersection and union are summed over the
+space group (`mesh.space_sum`, as the JAX package's `fgbg_sums` sums over
+'space') before the division, on every route: the FG_BG sums of
+ops/fgbg_loss.py, which reduce the slab, and the plain ones.
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ def _check(gt_volume, logits, weights):
 
 def _iou_loss(intersection: torch.Tensor, union: torch.Tensor
               ) -> torch.Tensor:
+  if mesh.space_count() > 1:
+    intersection, union = mesh.space_sum(
+        torch.stack([intersection, union])).unbind()
   iou = intersection / torch.where(union == 0, 1.0, union)
   return 1.0 - mesh.mean_over_ranks(iou.mean())
 

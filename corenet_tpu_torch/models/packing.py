@@ -32,6 +32,11 @@ The packed convolutions run as plain `F.conv3d`. Where a plan's padding
 is asymmetric (the stride-2 plan of kernel 3), the convolution pads both
 sides by the larger amount and the output is cropped: no padded copy of
 the activation and no zero taps.
+
+`depth_sharded` (the 'space' axis, parallel/mesh.py): the input is this
+rank's slab of packed depth cells, and the depth padding is the
+neighbours' boundary cells (`mesh.halo_exchange`, `packed_depth_halo`),
+so the output is the same slab of the whole grid's.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from corenet_tpu_torch.parallel import mesh
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -65,14 +72,22 @@ def depth_to_space(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def _conv_cropped(x: torch.Tensor, weight: torch.Tensor, lo: int, hi: int,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bias: Optional[torch.Tensor] = None,
+                  depth_sharded: bool = False) -> torch.Tensor:
   """Stride-1 `F.conv3d` padded by `lo` cells below and `hi` above on every
   axis, which may differ: it pads by the larger of the two and crops the
-  output's extra rows (a view)."""
+  output's extra rows (a view). depth_sharded: the depth is padded by the
+  neighbouring space ranks' cells instead (`mesh.halo_exchange`)."""
   pad = max(lo, hi)
-  y = F.conv3d(x, weight, bias, 1, pad)
+  axes = (2, 3, 4)
+  if depth_sharded:
+    x = mesh.halo_exchange(x, 2, lo, hi)
+    y = F.conv3d(x, weight, bias, 1, (0, pad, pad))
+    axes = (3, 4)
+  else:
+    y = F.conv3d(x, weight, bias, 1, pad)
   if lo != hi:
-    for axis in (2, 3, 4):
+    for axis in axes:
       size = x.shape[axis] + lo + hi - weight.shape[axis] + 1
       y = y.narrow(axis, pad - lo, size)
   return y
@@ -99,6 +114,14 @@ def _conv_transpose_taps(k: int, p: int) -> Tuple[int, int]:
         los.append(-(-(p + c - 2 * a + 2 * rm - (k - 1)) // 4))
         his.append((p + c - 2 * a + 2 * rm) // 4)
   return min(los), max(his)
+
+
+def packed_depth_halo(k: int, p: int, transposed: bool) -> Tuple[int, int]:
+  """(below, above): the packed depth cells of the neighbouring slabs that
+  a depth-sharded packed convolution (`transposed`: the stride-2 plan)
+  reads, the plan's tap range."""
+  lo, hi = (_conv_transpose_taps if transposed else _conv_taps)(k, p)
+  return -lo, hi
 
 
 def _flat_index(w0, w1, w2, k):
@@ -163,7 +186,8 @@ def _gather_taps(weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def packed_conv(x_packed: torch.Tensor, weight: torch.Tensor, padding: int,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                depth_sharded: bool = False) -> torch.Tensor:
   """Stride-1 convolution on packed activations.
 
   Args:
@@ -171,6 +195,7 @@ def packed_conv(x_packed: torch.Tensor, weight: torch.Tensor, padding: int,
     weight: the fine weight (Cout, Cin, k, k, k), odd k, padding = k // 2
       (fine output size = fine input size).
     bias: optional (8·Cout,) added inside the convolution.
+    depth_sharded: D2 is this space rank's slab (module docstring).
   Returns: (B, 8·Cout, D2, H2, W2), phase-major.
   """
   cout, cin, k = weight.shape[:3]
@@ -183,14 +208,15 @@ def packed_conv(x_packed: torch.Tensor, weight: torch.Tensor, padding: int,
   kk = kk.reshape(cout, cin, 8, 8, taps, taps, taps)
   kk = kk.permute(2, 0, 3, 1, 4, 5, 6)  # (r, co, a, ci, taps)
   kk = kk.reshape(8 * cout, 8 * cin, taps, taps, taps)
-  return _conv_cropped(x_packed, kk.to(x_packed.dtype), -lo, hi, bias)
+  return _conv_cropped(x_packed, kk.to(x_packed.dtype), -lo, hi, bias,
+                       depth_sharded)
 
 
 def packed_conv_transpose(x_packed: torch.Tensor, weight: torch.Tensor,
                           padding: int, output_padding: int,
                           phase_output: bool = False,
-                          bias: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          bias: Optional[torch.Tensor] = None,
+                          depth_sharded: bool = False) -> torch.Tensor:
   """Stride-2 transposed convolution, packed input → packed output (the
   fine and the packed sizes double).
 
@@ -202,6 +228,8 @@ def packed_conv_transpose(x_packed: torch.Tensor, weight: torch.Tensor,
       4·J + 2·rm + pz per axis. Without it, rm goes into space:
       (B, 8·Cout, 2·S0, 2·S1, 2·S2).
     bias: optional (64·Cout,) added inside the convolution.
+    depth_sharded: S0 is this space rank's slab (module docstring); the
+      output is the same slab, 2·S0 packed cells (S0 with phase_output).
   """
   cin, cout, k = weight.shape[:3]
   if weight.shape[2:] != (k, k, k):
@@ -220,7 +248,8 @@ def packed_conv_transpose(x_packed: torch.Tensor, weight: torch.Tensor,
   kk = kk.reshape(cout, cin, 64, 8, taps, taps, taps)
   kk = kk.permute(2, 0, 3, 1, 4, 5, 6)  # ((rm, c), co, a, ci, taps)
   kk = kk.reshape(64 * cout, 8 * cin, taps, taps, taps)
-  y = _conv_cropped(x_packed, kk.to(x_packed.dtype), -lo, hi, bias)
+  y = _conv_cropped(x_packed, kk.to(x_packed.dtype), -lo, hi, bias,
+                    depth_sharded)
   if phase_output:
     return y
   b = y.shape[0]

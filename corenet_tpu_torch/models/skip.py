@@ -26,6 +26,13 @@ with no reshuffle, and whose gradient comes back in a layout the
 backward kernel walks in place (csrc/skip_gather.cu). The JAX package
 takes the phase as the innermost index instead, for its channel-last
 block concatenation; each voxel reads the same pixel either way.
+
+A `depth_range` [z0, z1) (the 'space' axis: a depth-sharded decoder,
+models/decoder.py) takes the voxels of that depth slab only, z in
+[z0, z1) in the fine order and, packed, the cells [z0/2, z1/2) of each
+phase grid: the skip of that slab, which the kernels gather and scatter
+as a grid of their own. The feature map stays whole; its gradient holds
+the slab's share.
 """
 
 from __future__ import annotations
@@ -40,20 +47,21 @@ from corenet_tpu_torch.models import layers
 from corenet_tpu_torch.ops import skip_gather as skip_gather_op
 
 
-def _coordinates(size: int, offset: torch.Tensor, packed: bool
+def _coordinates(start: int, stop: int, offset: torch.Tensor, packed: bool
                  ) -> torch.Tensor:
-  """[B, size] voxel coordinates + offset along one axis; packed: [B, 2,
-  size/2], phase r and cell M holding 2M + r."""
-  c = torch.arange(size, dtype=torch.float32, device=offset.device)
+  """[B, n] voxel coordinates start..stop − 1 + offset along one axis;
+  packed: [B, 2, n/2], phase r and cell M holding 2M + r."""
+  c = torch.arange(start, stop, dtype=torch.float32, device=offset.device)
   if packed:
-    c = c.view(size // 2, 2).t()
+    c = c.view(-1, 2).t()
   return c[None] + offset.view((-1,) + (1,) * c.dim())
 
 
 def voxel_pixel_indices(voxel_projection_matrix: torch.Tensor,
                         voxel_sample_location: torch.Tensor,
                         grid_resolution: Tuple[int, int, int],
-                        height: int, width: int, packed: bool = False
+                        height: int, width: int, packed: bool = False,
+                        depth_range: Optional[Tuple[int, int]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Pixel indices into the 1-px padded [height + 2, width + 2] map of
   every voxel of a (depth, height, width) grid, voxels in (z, y, x) order;
@@ -63,30 +71,38 @@ def voxel_pixel_indices(voxel_projection_matrix: torch.Tensor,
   Args:
     voxel_projection_matrix: float32[B, 4, 4], voxel → screen (NDC).
     voxel_sample_location: float32[B, 3], in-voxel sample offset (x, y, z).
+    depth_range: (z0, z1), the voxels of that depth slab only (the
+      module's note); None: the whole depth.
 
   Returns:
-    (px, py), each int32[B, D·H·W].
+    (px, py), each int32[B, N] for the N = (z1 − z0)·H·W voxels.
   """
   gd, gh, gw = grid_resolution
-  if packed and (gd % 2 or gh % 2 or gw % 2):
-    raise ValueError(f"packed skips need an even grid, got "
-                     f"{tuple(grid_resolution)}")
+  z0, z1 = depth_range or (0, gd)
+  if not 0 <= z0 < z1 <= gd:
+    raise ValueError(f"depth range {depth_range} is not a slab of depth "
+                     f"{gd}")
+  if packed and (gd % 2 or gh % 2 or gw % 2 or z0 % 2 or z1 % 2):
+    raise ValueError(f"packed skips need an even grid and slab, got "
+                     f"{tuple(grid_resolution)}, depth {z0}..{z1}")
+  sd = z1 - z0
   m = voxel_projection_matrix
   b = m.shape[0]
   # Voxel centers in (x, y, z) order plus the sample offset, kept as
   # broadcastable axes instead of a materialized [B, D, H, W, 3] grid;
   # packed: (pz, py, px, z, y, x) axes.
   loc = voxel_sample_location
-  xs, ys, zs = (_coordinates(size, loc[:, axis], packed)
-                for axis, size in ((0, gw), (1, gh), (2, gd)))
+  xs, ys, zs = (_coordinates(start, stop, loc[:, axis], packed)
+                for axis, start, stop in ((0, 0, gw), (1, 0, gh),
+                                          (2, z0, z1)))
   if packed:
     xs = xs.view(b, 1, 1, 2, 1, 1, gw // 2)
     ys = ys.view(b, 1, 2, 1, 1, gh // 2, 1)
-    zs = zs.view(b, 2, 1, 1, gd // 2, 1, 1)
+    zs = zs.view(b, 2, 1, 1, sd // 2, 1, 1)
   else:
     xs = xs.view(b, 1, 1, gw)
     ys = ys.view(b, 1, gh, 1)
-    zs = zs.view(b, gd, 1, 1)
+    zs = zs.view(b, sd, 1, 1)
   lead = (b, 4) + (1,) * (xs.dim() - 1)
 
   def project(i):  # row i of M[:, :, :3] · c + M[:, :, 3]
@@ -114,7 +130,9 @@ def sample_grid2d(grid2d: torch.Tensor,
                   voxel_sample_location: torch.Tensor,
                   grid_resolution: Tuple[int, int, int],
                   outside_value: float = 0.0,
-                  packed: bool = False) -> torch.Tensor:
+                  packed: bool = False,
+                  depth_range: Optional[Tuple[int, int]] = None
+                  ) -> torch.Tensor:
   """Samples a 2D grid at the projected centers of a 3D voxel grid.
 
   Args:
@@ -124,6 +142,8 @@ def sample_grid2d(grid2d: torch.Tensor,
     grid_resolution: (depth, height, width) of the output 3D grid.
     outside_value: fill value for out-of-image / behind-camera voxels.
     packed: the packed decoder's voxel order (see the module's note).
+    depth_range: (z0, z1), the voxels of that depth slab only; the
+      returned depth is then z1 − z0 (the module's note).
 
   Returns:
     [B, depth, height, width, C] in grid2d's dtype; packed:
@@ -133,7 +153,10 @@ def sample_grid2d(grid2d: torch.Tensor,
   b, h, w, c = grid2d.shape
   px, py = voxel_pixel_indices(voxel_projection_matrix,
                                voxel_sample_location, grid_resolution, h, w,
-                               packed=packed)
+                               packed=packed, depth_range=depth_range)
+  if depth_range is not None:
+    grid_resolution = (depth_range[1] - depth_range[0],) + tuple(
+        grid_resolution[1:])
   padded = F.pad(grid2d, (0, 0, 1, 1, 1, 1), value=outside_value)
   if not packed:
     gathered = skip_gather_op.skip_gather(padded.contiguous(), px, py,
@@ -150,16 +173,18 @@ class SampleGrid2d(nn.Module):
   port's inner layout: grid2d [B, C, H, W] → [B, out, D, H, W], in the
   compression's compute dtype (the gather copies rows of that dtype);
   packed: [B, 8, out, D/2, H/2, W/2], phase-major, a view of the
-  gather's output."""
+  gather's output. With `depth_range` (z0, z1), D is the slab's z1 − z0."""
 
   def __init__(self, in_channels: int, out_channels: int,
                grid_resolution: Tuple[int, int, int],
                packed: bool = False,
+               depth_range: Optional[Tuple[int, int]] = None,
                compute_dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None):
     super().__init__()
     self.grid_resolution = tuple(grid_resolution)
     self.packed = packed
+    self.depth_range = depth_range
     self.compress_channels = layers.Conv(in_channels, out_channels, 1,
                                          ndim=2, compute_dtype=compute_dtype,
                                          device=device)
@@ -170,7 +195,8 @@ class SampleGrid2d(nn.Module):
     compressed = self.compress_channels(grid2d).permute(0, 2, 3, 1)
     sampled = sample_grid2d(compressed, voxel_projection_matrix,
                             voxel_sample_location, self.grid_resolution,
-                            packed=self.packed)
+                            packed=self.packed,
+                            depth_range=self.depth_range)
     if self.packed:
       return sampled.permute(0, 1, 5, 2, 3, 4)
     return sampled.permute(0, 4, 1, 2, 3)

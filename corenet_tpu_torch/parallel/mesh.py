@@ -25,15 +25,32 @@ Without a process group every function here is the one-process identity
 path unchanged. With a group, the collectives run even at world size 1,
 so one card runs the code path of N.
 
-There is no 'space' axis: spatial partitioning of the decoder is slice
-7b of the port.
+The 'space' axis (corenet_tpu/parallel/mesh.py's second one) shards the
+decoder's depth: `create_mesh(data, space)` lays the ranks out as
+data × space, space innermost (rank = data_index · space + space_index,
+JAX's `reshape(data, space)`), with one process group per data index
+holding its space ranks. The space ranks of a data group step on the same
+batch, each on one depth slab of the decoder (models/decoder.py); the
+convolutions read their neighbours' boundary slices through
+`halo_exchange`, and the IoU losses sum each scene over the group
+(`space_sum`). Both are all-reduces over the space group whose backward is
+the same all-reduce, so the rule above holds with world size
+data × space: every rank's loss is the global loss, the encoder and the
+decoder's replicated stages give every space rank the same values, and
+`all_reduce_gradients` over the whole world is unchanged. A halo travels
+as an all-reduce of a zeroed buffer in which each rank fills its own slot:
+gloo takes CUDA tensors only in all_reduce and broadcast, and NCCL refuses
+two ranks on one card, so this one transport serves the CPU, one card
+with gloo ranks and several cards with NCCL. Without `create_mesh` the
+layout is data = world size, space = 1.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
-from typing import Iterable, List, Optional, Sequence
+from typing import Any, Iterable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -49,6 +66,18 @@ collective_count = 0
 _host_group = None
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+  """The (data, space) layout of the process group (`create_mesh`)."""
+  data: int
+  space: int
+  # This rank's space group; None when space is 1 (nothing to reduce).
+  space_group: Any = None
+
+
+_mesh: Optional[Mesh] = None
+
+
 def initialize(backend: Optional[str] = None,
                init_method: Optional[str] = None,
                rank: Optional[int] = None,
@@ -61,8 +90,9 @@ def initialize(backend: Optional[str] = None,
   "env://") unless given. The backend defaults to NCCL for a CUDA device
   and gloo for the CPU; a CUDA device is `cuda:LOCAL_RANK`, made current
   before the group forms. A host group of gloo serves the CPU tensors.
-  Every failure raises: no rank goes on alone."""
-  global _host_group
+  Every failure raises: no rank goes on alone. The layout is data only
+  until `create_mesh` says otherwise."""
+  global _host_group, _mesh
   if dist.is_initialized():
     raise RuntimeError("the process group is already initialized")
   device = local_device(device)
@@ -79,6 +109,7 @@ def initialize(backend: Optional[str] = None,
                           rank=rank, world_size=world_size)
   _host_group = (dist.group.WORLD if backend == "gloo"
                  else dist.new_group(backend="gloo"))
+  _mesh = None
   log.info("process %d of %d on %s (%s; host reductions over gloo)", rank,
            world_size, device, backend)
   return device
@@ -86,10 +117,11 @@ def initialize(backend: Optional[str] = None,
 
 def shutdown() -> None:
   """Leaves the process group (a no-op without one)."""
-  global _host_group
+  global _host_group, _mesh
   if dist.is_initialized():
     dist.destroy_process_group()
   _host_group = None
+  _mesh = None
 
 
 def _environ(name: str) -> str:
@@ -110,6 +142,54 @@ def process_count() -> int:
 
 def process_index() -> int:
   return dist.get_rank() if dist.is_initialized() else 0
+
+
+def create_mesh(data: Optional[int] = None, space: int = 1) -> Mesh:
+  """Lays the processes out as data × space, space innermost, and makes
+  it the layout that `data_count` and the others report; returns it.
+  data × space must equal the world size (1 without a group); `data`
+  defaults to world size / space. Every rank must call it, with the same
+  arguments: each space group is a `dist.new_group`, and every rank
+  creates every group in the same order."""
+  global _mesh
+  world = process_count()
+  if space < 1 or (data is not None and data < 1):
+    raise ValueError(f"mesh axes must be positive, got data={data}, "
+                     f"space={space}")
+  if data is None:
+    if world % space:
+      raise ValueError(f"space={space} does not divide the world size "
+                       f"{world}")
+    data = world // space
+  if data * space != world:
+    raise ValueError(f"data={data} × space={space} is not the world size "
+                     f"{world}")
+  group = None
+  if space > 1:
+    mine = process_index() // space
+    for d in range(data):
+      g = dist.new_group(list(range(d * space, (d + 1) * space)))
+      if d == mine:
+        group = g
+  _mesh = Mesh(data, space, group)
+  log.info("mesh: data %d × space %d", data, space)
+  return _mesh
+
+
+def data_count() -> int:
+  return _mesh.data if _mesh is not None else process_count()
+
+
+def space_count() -> int:
+  return _mesh.space if _mesh is not None else 1
+
+
+def data_index() -> int:
+  return process_index() // space_count()
+
+
+def space_index() -> int:
+  return process_index() % space_count()
 
 
 def local_device(device) -> torch.device:
@@ -142,22 +222,25 @@ def barrier(name: str) -> None:
 
 
 class _AllReduceSum(torch.autograd.Function):
-  """The sum over ranks; its backward is the sum over ranks of the
-  incoming gradients, the adjoint of the sum of every rank's copy."""
+  """The sum over the ranks of `group` (None: all); its backward is the
+  sum over those ranks of the incoming gradients, the adjoint of the sum
+  of every rank's copy."""
 
   @staticmethod
-  def forward(ctx, x):
-    return _all_reduce(x.clone(memory_format=torch.contiguous_format))
+  def forward(ctx, x, group=None):
+    ctx.group = group
+    return _all_reduce(x.clone(memory_format=torch.contiguous_format), group)
 
   @staticmethod
   def backward(ctx, grad):
-    return _all_reduce(grad.clone(memory_format=torch.contiguous_format))
+    return _all_reduce(grad.clone(memory_format=torch.contiguous_format),
+                       ctx.group), None
 
 
-def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
   global collective_count
   collective_count += 1
-  dist.all_reduce(x)
+  dist.all_reduce(x, group=group)
   return x
 
 
@@ -166,6 +249,46 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
   if not dist.is_initialized():
     raise RuntimeError("no process group: call parallel.mesh.initialize()")
   return _AllReduceSum.apply(x)
+
+
+def space_sum(x: torch.Tensor) -> torch.Tensor:
+  """The sum of `x` over this rank's space group, differentiable; `x`
+  itself when space is 1."""
+  if space_count() == 1:
+    return x
+  return _AllReduceSum.apply(x, _mesh.space_group)
+
+
+def halo_exchange(x: torch.Tensor, dim: int, lo: int, hi: int
+                  ) -> torch.Tensor:
+  """`x`, this rank's depth slab along `dim`, extended by `lo` slices of
+  the previous space rank's slab and `hi` of the next one's, with zeros
+  past the grid's two ends (the first and the last rank): what a
+  convolution's zero padding reads there. Differentiable; one all-reduce
+  over the space group (none when space is 1), in which this rank's slot
+  holds its first `hi` and last `lo` slices. Halos come from the nearest
+  neighbours only, so neither may be deeper than the slab."""
+  size = x.shape[dim]
+  if lo < 0 or hi < 0 or lo > size or hi > size:
+    raise ValueError(f"a halo of {lo} and {hi} slices does not come from "
+                     f"the neighbours' slabs of {size}: halos are exchanged "
+                     "with the nearest space ranks only")
+
+  def zeros(n):
+    shape = list(x.shape)
+    shape[dim] = n
+    return x.new_zeros(shape)
+
+  n, i = space_count(), space_index()
+  if n == 1:
+    return torch.cat([zeros(lo), x, zeros(hi)], dim)
+  mine = torch.cat([x.narrow(dim, 0, hi), x.narrow(dim, size - lo, lo)], dim)
+  slots = torch.stack([mine if r == i else torch.zeros_like(mine)
+                       for r in range(n)])
+  slots = _AllReduceSum.apply(slots, _mesh.space_group)
+  below = slots[i - 1].narrow(dim, hi, lo) if i > 0 else zeros(lo)
+  above = slots[i + 1].narrow(dim, 0, hi) if i < n - 1 else zeros(hi)
+  return torch.cat([below, x, above], dim)
 
 
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,12 @@ Per-scene layout (data/batching.py):
 The view → voxel transform is scale(m), m = max(D, H, W), followed by a
 shift of grid_offset − 0.5, so voxels are tested at their sampled
 locations; the returned v2x is the unshifted scale.
+
+Under the 'space' axis (parallel/mesh.py) every space rank voxelizes its
+data group's whole batch, as one process does, and keeps its depth slab
+of the labels (`depth_slab`). The JAX package spreads the voxelization
+over data × space and reshards the grids with an all-to-all; the labels
+are the same bits either way.
 """
 
 from __future__ import annotations
@@ -33,6 +39,22 @@ from corenet_tpu_torch.voxel import raster_fast
 from corenet_tpu_torch.voxel.fill import fill_inside_voxels
 from corenet_tpu_torch.voxel.voxelize import (
     get_sub_grid_centers, voxelize_triangles)
+
+
+def depth_slab(labels: torch.Tensor, depth_shard: Tuple[int, int]
+               ) -> torch.Tensor:
+  """Slab `index` of `count` equal slabs of dim 1, for depth_shard =
+  (index, count): the depth of a grid [B, D, H, W], or the coarse depth
+  of phase-major labels [B, D/s, H/s, (W/s)·s³], whose slabs are
+  fine-contiguous. A view; `labels` itself for a count of 1."""
+  index, count = depth_shard
+  if count == 1:
+    return labels
+  depth = labels.shape[1]
+  if depth % count:
+    raise ValueError(f"a depth of {depth} does not split into {count} "
+                     "slabs")
+  return labels.narrow(1, index * (depth // count), depth // count)
 
 
 def _v2x(b: int, m: float, device) -> torch.Tensor:

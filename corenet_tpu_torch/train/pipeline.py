@@ -25,11 +25,17 @@ reads it; rank 0 alone writes checkpoints and summaries; the raster
 ground truth takes a static fill; rank 0 logs every worker's progress.
 Every rank runs the recurrent evals, each on its shard of the eval set.
 
+With a mesh of a 'space' axis (parallel/mesh.py::create_mesh(space=N),
+the train CLI's --space) the ranks form data × space: the space ranks of
+a data group load the same batches and train one depth slab each of a
+depth-sharded model (models/decoder.py), the epoch is sharded over the
+data groups, and the global batch is the configuration's batch times the
+data count. The recurrent evals run the unsharded eval twin, each rank on
+its shard of the eval set as above.
+
 With `gt_mode="host"` the loader's producer thread voxelizes each batch
 with the native C++ ops (data/batching.py::host_voxelize) while the step
-runs, and the step trains on that `grid`. Not ported here, and refused
-with the slice that brings it: a device mesh with a 'space' axis (slice
-7b).
+runs, and the step trains on that `grid`.
 """
 
 from __future__ import annotations
@@ -125,14 +131,19 @@ class TrainPipeline:
       (None keeps 5000).
     device: where the model trains; 'cuda' needs a card, and means this
       process's, cuda:LOCAL_RANK.
-    mesh: the JAX package's device mesh. The port's 'data' axis is the
-      process group (parallel/mesh.py); a mesh, which would bring the
-      'space' axis, is refused.
+    mesh: the process group's (data, space) layout,
+      `parallel.mesh.create_mesh(...)`'s result (the module docstring);
+      None lays the group out as data only.
     """
-    if mesh is not None:
-      raise NotImplementedError(
-          "a device mesh with a 'space' axis is slice 7b of the port; data "
-          "parallelism is the process group (parallel.mesh.initialize)")
+    if mesh is None:
+      mesh = mesh_lib.create_mesh()
+    elif not isinstance(mesh, mesh_lib.Mesh):
+      raise TypeError(f"mesh must be parallel.mesh.create_mesh()'s Mesh, "
+                      f"got {type(mesh).__name__}")
+    elif (mesh.data, mesh.space) != (mesh_lib.data_count(),
+                                     mesh_lib.space_count()):
+      raise ValueError(f"mesh {mesh} is not the layout that "
+                       "parallel.mesh.create_mesh made last")
     if gt_mode not in ("device", "host"):
       raise ValueError(f"unknown gt_mode {gt_mode!r}")
     if gt_algorithm not in ("raster", "parity"):
@@ -175,7 +186,12 @@ class TrainPipeline:
              "packed" if packed else "fine", decoder_execution)
     self.model = CoreNet(self.model_config, phase_output=phase_loss,
                          compute_dtype=COMPUTE_DTYPES[compute_dtype],
-                         packed_decoder=packed)
+                         packed_decoder=packed,
+                         depth_shard=(mesh_lib.space_index(), mesh.space))
+    if mesh.space > 1:
+      log.info("space rank %d of %d: the decoder is sharded from tower %d",
+               mesh_lib.space_index(), mesh.space,
+               self.model.decoder.shard_stage)
 
     irm = vc.voxelization_image_resolution_multiplier
     # A static fill count when the configuration asks for one, or under
@@ -261,7 +277,8 @@ class TrainPipeline:
   # ------------------------------------------------------------- loop ----
   def _epoch_loader(self, start_step: int) -> DataLoader:
     """This rank's batches from global step `start_step` to the end of
-    its epoch.
+    its epoch (its data group's: every space rank of a group takes the
+    same batches).
 
     An epoch is the examples that full global batches cover: the
     dataset's length rounded down to a multiple of the global batch, so
@@ -281,9 +298,10 @@ class TrainPipeline:
     resumed rank goes on with its own shard's next batch, the batch an
     uninterrupted run takes."""
     dl_cfg = self.config.data.data_loader
-    # The configuration's batch size is per process (the reference's
-    # convention); the global step advances by the global batch.
-    batch, world = dl_cfg.batch_size, mesh_lib.process_count()
+    # The configuration's batch size is per data group, the process of the
+    # reference's convention (the space ranks of a group load the same
+    # batches); the global step advances by the global batch.
+    batch, world = dl_cfg.batch_size, mesh_lib.data_count()
     global_batch = batch * world
     covered = (self.dataset_manager.epoch_len // global_batch
                * global_batch)
@@ -294,7 +312,7 @@ class TrainPipeline:
     epoch, offset = divmod(start_step, covered)
     dataset = self.dataset_manager.create_dataset(local_seed=epoch)
     indices = distributed_indices(len(dataset), world,
-                                  mesh_lib.process_index(), pad_data=True,
+                                  mesh_lib.data_index(), pad_data=True,
                                   shuffle=False)
     shard = dataset.select(
         indices[offset // global_batch * batch:covered // world])

@@ -12,6 +12,14 @@ the global batch, as the JAX step does on a 'data' mesh: BatchRenorm's
 statistics and the loss are the global batch's, the gradients are
 averaged over ranks after the backward (one all-reduce), and every rank
 takes the same Adam step and counts the global batch.
+
+Under the 'space' axis (parallel/mesh.py::create_mesh) the space ranks of
+a data group step on the same batch with a depth-sharded model
+(`CoreNet(depth_shard=...)`): each voxelizes the whole batch, keeps its
+slab of the labels (train/gt.py::depth_slab), and trains on its slab of
+the logits; the loss sums each scene's IoU terms over the group
+(models/losses.py). The gradient all-reduce stays over the whole world,
+and the global batch is B · data_count().
 """
 
 from __future__ import annotations
@@ -87,7 +95,9 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   Under a process group the batch is this rank's shard, of the same B on
   every rank (checked each step); statistics and loss are the global
   batch's, the update is the global gradient's, and global_step advances
-  by the global batch, B · world size.
+  by the global batch, B · data_count() (the world size without a
+  'space' axis). With a depth-sharded model the batch is the data
+  group's, and the labels are cut to the model's slab.
   """
   loss_fn = loss_fn_for_task(task_type)
   resolution = tuple(resolution)
@@ -100,6 +110,7 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   # Phase factor per axis: the packed decoder's deep-phase output is
   # factor 4³ = 64, the fine decoder's phased last stage 2³ = 8.
   phase_s = 4 if model.packed_decoder else 2
+  depth_shard = model.depth_shard
 
   def ground_truth(batch: Batch):
     """(grid or None, phase-major labels or None, v2x)."""
@@ -126,6 +137,10 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
 
   def step(state: TrainState, batch: Batch):
     grid, phased, v2x = ground_truth(batch)
+    if grid is not None:
+      grid = gt.depth_slab(grid, depth_shard)
+    if phased is not None:
+      phased = gt.depth_slab(phased, depth_shard)
     batch_size = batch["image"].shape[0]
     mesh.assert_equal_across_ranks(batch_size, "the batch size")
     v2s = compute_v2s(batch["camera"], v2x)
@@ -151,7 +166,7 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
     optimizer.step()
     new_state = dataclasses.replace(
         state,
-        global_step=state.global_step + batch_size * mesh.process_count())
+        global_step=state.global_step + batch_size * mesh.data_count())
     return new_state, {"loss": loss.detach()}
 
   return step

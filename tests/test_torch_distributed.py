@@ -18,7 +18,8 @@ on 2 scenes (float32 within 1e-5 relative, bf16 by the 2·d rule of
 tests/test_torch_bf16.py, phase_packing 8 both ways); the SEMANTIC loss,
 whose product of two batch means differs from the mean of the ranks'
 products; the confusion reduce and the gather of summary tiles; the
-refusals (unequal batches, a missing card, no environment, --space 2);
+refusals (unequal batches, a missing card, no environment, --space 2 in
+a world of 1);
 the launcher's retry policy and utils/ui.py against the JAX package's.
 The step is in tests/test_torch_distributed_step.py, the pipelines and
 the CLI in tests/test_torch_distributed_pipeline.py.
@@ -377,9 +378,13 @@ def test_without_a_group_everything_is_one_process(monkeypatch):
 
 
 def test_train_cli_refuses_the_space_axis(tmp_path):
+  """--space=2 needs a world that 2 divides: one process without
+  --multihost is refused before the configuration is read."""
   from corenet_tpu_torch.cli import train
-  with pytest.raises(NotImplementedError, match="slice 7b"):
+  with pytest.raises(ValueError, match="does not divide the world size 1"):
     train.main(["--config_path=unused.json", "--space=2", "--device=cpu"])
+  with pytest.raises(ValueError, match="does not divide the world size 1"):
+    mesh.create_mesh(space=2)
 
 
 # ------------------------------------------------------------ the launcher ----

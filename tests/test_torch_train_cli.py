@@ -135,7 +135,9 @@ def test_flags_are_the_jax_clis(config_path):
 
 def test_train_cli_refusals(config_path, monkeypatch):
   path, _ = config_path
-  with pytest.raises(NotImplementedError, match="slice 7b"):
+  # --space (the 'space' axis) needs a world that it divides: one process
+  # has none (tests/test_torch_space_pipeline.py trains on 2).
+  with pytest.raises(ValueError, match="does not divide the world size 1"):
     train_cli.main([f"--config_path={path}", "--device=cpu", "--space=2"])
   # --gt_mode=host (slice 8b) is ported (tests/test_torch_host_gt.py); an
   # unknown mode is refused.

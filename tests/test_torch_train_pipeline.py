@@ -10,7 +10,7 @@ the port's `.cpt` in JAX's `decode_state`; the data order of a resumed
 run against the JAX pipeline's loader (and the profiler's trace); the
 fill audit's cadence; a
 recurrent eval's CSV and scalars, with the training model left in train
-mode; the refusals that name the slices still to come. The CLI and the
+mode; the refusals (a mesh that is not parallel.mesh's layout). The CLI and the
 encoder `.npz` are in tests/test_torch_train_cli.py.
 """
 
@@ -301,8 +301,14 @@ def test_refusals_name_their_slices(dataset, caplog):
   full = cfg.config_from_dict(
       cfg.TrainPipeline, full_config_dict(root, manifest, meshes_dir))
   out = os.path.join(root, "refused")
-  with pytest.raises(NotImplementedError, match="slice 7b"):
+  # A mesh is parallel.mesh's layout (the 'space' axis trains in
+  # tests/test_torch_space_pipeline.py); anything else is refused.
+  with pytest.raises(TypeError, match="create_mesh"):
     pipeline.TrainPipeline(full.train, out, device="cpu", mesh=object())
+  from corenet_tpu_torch.parallel import mesh as mesh_lib
+  layout = mesh_lib.create_mesh(space=1)
+  assert pipeline.TrainPipeline(full.train, out, device="cpu",
+                                mesh=layout).model.depth_shard == (0, 1)
   # The host GT (slice 8b) is ported: the native C++ ground truth in the
   # loader (tests/test_torch_host_gt.py).
   assert pipeline.TrainPipeline(full.train, out, device="cpu",
