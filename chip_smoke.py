@@ -32,7 +32,7 @@ Phases; the run fails at the first that fails:
               Checks the PMF (shape, finite, sums to 1), that each forward
               launched the skip kernel once per skip (4), and that the
               PMF equals that of the same forward with the plain skips.
-              Times 30 forwards one by one (closed loop, one batch in
+              Times 15 forwards one by one (closed loop, one batch in
               flight) and profiles one more (device busy time, the kernels
               with the most device time).
   4. y1       a y1-shaped model (32³ native → 128³ output: m = 4, 64
@@ -49,7 +49,7 @@ Phases; the run fails at the first that fails:
               loss falls over 10 steps on the batch (the lowest at least
               5 % below the first: loss_steps), and that one step with
               the kernels matches the same step with the plain versions.
-              Times 20 steps one by one and profiles one more. Then one
+              Times 10 steps one by one and profiles one more. Then one
               step at 32³ on the card against the same step on the CPU.
   6. train-gt h7 training as the JAX package trains by default: ground
               truth voxelized in the step from the batch's triangles
@@ -69,7 +69,7 @@ Phases; the run fails at the first that fails:
               CPU's (two scenes, bit for bit), finite loss and gradients,
               a falling loss, the kernel step against the plain step, and
               the phase loss against the plain loss on the same grid.
-              Times K3 and K4 at the step's shapes, the GT's parts, 20
+              Times K3 and K4 at the step's shapes, the GT's parts, 10
               steps, and profiles one more.
   7. eval     h7's full_eval through EvalPipeline.run_eval: a seeded
               dataset written to a temporary directory (a manifest of two
@@ -99,7 +99,7 @@ Phases; the run fails at the first that fails:
               fgbg_sums), the labeled grid against the CPU's (two scenes,
               bit for bit), finite loss and gradients, a falling loss, the
               kernel step against the plain step. Times the GT's parts
-              (CUDA events around eager calls), 20 steps, and profiles one
+              (CUDA events around eager calls), 10 steps, and profiles one
               more. Then parity_voxelize_batch at 128³ on the phase-6
               batch: card against CPU, its difference from raster + fill,
               its time.
@@ -129,7 +129,7 @@ Phases; the run fails at the first that fails:
               1 each on the blocked branch), finite float32 gradients,
               the kernel step against the plain step (loss 1e-6 relative,
               the gradients by compare_with_plain_step's bf16 rule), a
-              falling loss, 20 timed steps, peak memory, a profile with
+              falling loss, 10 timed steps, peak memory, a profile with
               the share of cuDNN's dgrad and wgrad engines. One h7 row in float32 with TF32 on
               (for that row only). tests/test_learning.py's two-scene
               overfit at 32³ in bf16: the loss below a tenth of the first
@@ -149,7 +149,7 @@ Phases; the run fails at the first that fails:
               default, against the fine decoder. Serving, float32: h7 and
               y1 (as phases 3–4), the packed eval-mode logits within
               1e-5 · max|logit| of the fine ones, then for each
-              execution 30 timed forwards, peak memory, a profile (idle
+              execution 15 timed forwards, peak memory, a profile (idle
               share, convolution shares).
               Training on GT voxelized in the step with the phase loss
               (phase 6's batch), bf16 and float32, each execution: the
@@ -158,7 +158,7 @@ Phases; the run fails at the first that fails:
               decoder, whose factor-64 logits the loss takes); packed, the
               kernel step against the plain step (phase 5's and 10's
               rules), the phase loss against the plain loss on the
-              unpacked logits (1e-6) and a falling loss; 20 timed steps and
+              unpacked logits (1e-6) and a falling loss; 10 timed steps and
               a profile. K1's backward in packed voxel order at skip 5
               (the packed step's gradient layout, no copy) and K4 at s = 4
               against their plain versions, timed; the backward beside the
@@ -173,7 +173,7 @@ Phases; the run fails at the first that fails:
               one rank on cuda:0 against the same step without a group:
               launches, the collectives per step, the loss and the new
               statistics bit-equal, the gradients bit-equal or within
-              1e-6 (K1's backward adds with atomics), 20 timed steps
+              1e-6 (K1's backward adds with atomics), 10 timed steps
               without the group, in it and without it again, one profiled
               step each, the host time of an all-reduce. (b) 2 processes
               over gloo, both on cuda:0 (LOCAL_RANK 0: the shape of two
@@ -230,12 +230,33 @@ Phases; the run fails at the first that fails:
               packed or 4, K2 1, K3 1, K4 1), the collectives per step
               (the data-parallel ones, 20 halo exchanges, 2 IoU sums over
               the space group), both ranks' losses, statistics, gradients
-              and parameters after Adam bit-equal, 20 timed steps, the
+              and parameters after Adam bit-equal, 10 timed steps, the
               peak memory per rank beside one process's and the memory
               before and left by the decoder's forward. (c) TrainPipeline
               with the layout at 32³ (cut from 128³ for time) for 4 steps:
               the same batches on both ranks, launches, rank-0
-              checkpoints read back, equal weights.
+              checkpoints read back, equal weights. (d) The GT shared
+              over the space ranks (train/gt.py::space_shared), which (a)
+              and (b) take: each rank launches K3 and K4 (s = 4) once, on
+              its 2 of the 4 scenes, and the ranks trade depth slabs of
+              the labels with an all-to-all (the zeroed-slot all-reduce
+              of gloo on CUDA tensors). For each packed case, the step
+              again with the GT replicated (each rank voxelizes all 4
+              scenes and keeps its slab): labels, loss and statistics
+              bit-equal, gradients within DIST_SAME_GRAD_TOL each (K1's
+              backward adds with atomics in no fixed order); the peak
+              memory per rank of both routes beside one process's, and
+              the peak of each part of the step (the GT, the forward,
+              the backward, the optimizer); rank by rank while the other
+              waits, K3 and K4 on the rank's 2 scenes and on all 4
+              against their plain versions, with the GT's device time by
+              part (CUDA graphs); the labels' all-to-all's host time.
+  16. space-nccl the 'space' axis's exchanges over NCCL, one card per
+              rank, on a machine with two cards or more (up to 4): the
+              labels' all-to-all against the row permutation, and halo
+              exchanges, forward and backward, against their definition,
+              bit for bit, with their collectives and host times. On one
+              card it prints that it did not run, and why.
 
 The float32 phases compute in float32: TF32 is switched off for
 convolutions and matmuls (phase 10 switches it on for its one TF32 row),
@@ -268,8 +289,8 @@ BATCH = 4
 IMAGE_HW = 256
 OUTPUT_RES = (128, 128, 128)
 Y1_NATIVE = (32, 32, 32)
-SERVE_RUNS = 30
-TRAIN_RUNS = 20
+SERVE_RUNS = 15
+TRAIN_RUNS = 10
 LOSS_STEPS = 10
 LOSS_FALL = 0.05  # the lowest of those steps, relative to the first loss
 TRAIN_SMALL = (32, 32, 32)  # the card-against-CPU step
@@ -286,7 +307,7 @@ Y1_VOX = dict(sub_grid_sampling=True, image_resolution_multiplier=31,
               projection_depth_multiplier=1, max_bbox_pixels=24,
               fill_rounds=None, num_label_values=2)
 EVAL_SCENES = 10
-EVAL_TIMING_PASSES = 4  # the timed eval reads the dataset this many times
+EVAL_TIMING_PASSES = 2  # the timed eval reads the dataset this many times
 # (class id, human-readable name) of the eval dataset's manifest.
 EVAL_CLASSES = (("02958343", "cube"), ("03001627", "sphere"))
 GT_TRIANGLES = 16384  # padded triangles per scene
@@ -1043,11 +1064,12 @@ GT_KEYS = ("triangles", "tri_mesh_slot", "tri_valid", "mesh_labels",
            "grid_offset")
 
 
-def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds):
-  """K3 and K4 at the step's shapes against their plain versions, and the
-  device time of the GT's parts: phase A, the scatter, the fill (its
-  static loop with the rounds the adaptive fill ran), the slot OR with
-  phased_gt."""
+def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds, s=2,
+                   where="at the step's shapes"):
+  """K3 and K4 (at phase factor s) at the step's shapes against their
+  plain versions, and the device time of the GT's parts: phase A, the
+  scatter, the fill (its static loop with the rounds the adaptive fill
+  ran), the slot OR with phased_gt."""
   from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.voxel import packed as packed_mod
   from corenet_tpu_torch.voxel import raster_fast
@@ -1083,21 +1105,21 @@ def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds):
                               block_scatter_or_reference(origins, pw, **kw),
                               reps=2, trials=3),
         "library_ms": None, "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3}
-  phases = phased.phased_gt(packed_or, 2)
-  plain = phased.phased_gt_reference(packed_or, 2)
+  phases = phased.phased_gt(packed_or, s)
+  plain = phased.phased_gt_reference(packed_or, s)
   torch.cuda.synchronize()
   if not torch.equal(phases, plain):
     raise AssertionError("phased_gt differs from its plain version at the "
                          "step's shapes")
   k4_bytes = packed_or.numel() * 4 + phases.numel()
-  k4 = {"packed": list(packed_or.shape), "out": list(phases.shape),
+  k4 = {"s": s, "packed": list(packed_or.shape), "out": list(phases.shape),
         "bytes": k4_bytes, "max_abs_err": 0.0,
-        "ms": device_ms(torch, lambda: phased.phased_gt(packed_or, 2)),
+        "ms": device_ms(torch, lambda: phased.phased_gt(packed_or, s)),
         "plain_ms": device_ms(
-            torch, lambda: phased.phased_gt_reference(packed_or, 2)),
+            torch, lambda: phased.phased_gt_reference(packed_or, s)),
         "library_ms": None, "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3}
   for name, row in (("block_scatter_or", k3), ("phased_gt", k4)):
-    log(f"{name} at the step's shapes: kernel {row['ms']:.4f} ms, plain "
+    log(f"{name} {where}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library none, bound "
         f"{row['bound_ms']:.4f} ms ({row['bytes']} B)" +
         (f"; {valid} valid triangles, {atomics} nonzero words (atomics)"
@@ -1108,7 +1130,7 @@ def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds):
 
   def slot_or_phased():
     masked = torch.where((labels > 0)[:, :, None, None, None], words, 0)
-    return phased.phased_gt((masked[:, 0] | masked[:, 1]).contiguous(), 2)
+    return phased.phased_gt((masked[:, 0] | masked[:, 1]).contiguous(), s)
 
   split = {"phase_a_ms": device_ms(torch, phase_a, reps=3, trials=5),
            "scatter_ms": k3["ms"],
@@ -1118,7 +1140,7 @@ def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds):
            "slot_or_phased_gt_ms": device_ms(torch, slot_or_phased)}
   split["sum_ms"] = (split["phase_a_ms"] + split["scatter_ms"] +
                      split["fill_ms"] + split["slot_or_phased_gt_ms"])
-  log("GT device time per step (CUDA graphs): " + ", ".join(
+  log(f"GT device time {where} (CUDA graphs): " + ", ".join(
       f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
       for k, v in split.items()))
   return k3, k4, split
@@ -2598,12 +2620,13 @@ def depth_to_space_64(logits, nc):
 
 
 @contextlib.contextmanager
-def caught_calls(module, name, record):
-  """Wraps module.name to append each call's arguments to `record`."""
+def caught_calls(module, name, record, keep=lambda *call: call):
+  """Wraps module.name to append each call's arguments to `record`, or
+  what `keep(args, kwargs)` keeps of them."""
   real = getattr(module, name)
 
   def wrapped(*args, **kwargs):
-    record.append((args, kwargs))
+    record.append(keep(args, kwargs))
     return real(*args, **kwargs)
 
   setattr(module, name, wrapped)
@@ -3242,18 +3265,20 @@ def dist_nccl_world1(torch, mods, CoreNet, config, batch, dev, root):
   return out
 
 
-def run_dist_workers(torch, task, tag, root, args):
-  """Runs `chip_smoke.py --dist-worker` in DIST_WORLD processes, each
-  with LOCAL_RANK 0 (the shape of DIST_WORLD one-card hosts, all on
-  cuda:0), joined over gloo; returns their results in rank order. A rank
-  that fails or a run past DIST_TIMEOUT_S fails the phase, and every
-  process is ended."""
-  env = dict(os.environ, LOCAL_RANK="0", OMP_NUM_THREADS="4")
+def run_dist_workers(torch, task, tag, root, args, world=DIST_WORLD,
+                     card_per_rank=False):
+  """Runs `chip_smoke.py --dist-worker` in `world` processes, each with
+  LOCAL_RANK 0 (the shape of `world` one-card hosts, all on cuda:0),
+  joined over gloo, or with `card_per_rank` on cuda:RANK over NCCL;
+  returns their results in rank order. A rank that fails or a run past
+  DIST_TIMEOUT_S fails the phase, and every process is ended."""
   procs = [subprocess.Popen(
       [sys.executable, os.path.abspath(__file__), "--dist-worker", task, tag,
-       str(rank), str(DIST_WORLD), root] + [str(a) for a in args],
-      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-           for rank in range(DIST_WORLD)]
+       str(rank), str(world), root] + [str(a) for a in args],
+      env=dict(os.environ, OMP_NUM_THREADS="4",
+               LOCAL_RANK=str(rank) if card_per_rank else "0"),
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+           for rank in range(world)]
   outs = []
   try:
     for p in procs:
@@ -3269,7 +3294,7 @@ def run_dist_workers(torch, task, tag, root, args):
       raise AssertionError(f"dist {tag} rank {rank} exited with "
                            f"{p.returncode}:\n{text[-6000:]}")
   return [torch.load(os.path.join(root, f"{tag}_rank{rank}.pt"))
-          for rank in range(DIST_WORLD)]
+          for rank in range(world)]
 
 
 def params_digest(model):
@@ -3751,11 +3776,13 @@ def dist_worker(argv) -> int:
   rank, world = int(rank), int(world)
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
-  dev = mesh.initialize(backend="gloo", init_method="file://" + os.path.join(
-      root, f"{tag}_store"), rank=rank, world_size=world, device="cuda")
+  dev = mesh.initialize(backend="nccl" if task == "nccl" else "gloo",
+                        init_method="file://" + os.path.join(
+                            root, f"{tag}_store"),
+                        rank=rank, world_size=world, device="cuda")
   try:
     work = {"step": dist_worker_step, "pipeline": dist_worker_pipeline,
-            "space": space_worker_step}[task]
+            "space": space_worker_step, "nccl": nccl_worker}[task]
     result = work(torch, (op, fgbg, scatter, phased), rank, dev, root,
                   *argv[5:])
     torch.save(result, os.path.join(root, f"{tag}_rank{rank}.pt"))
@@ -4302,18 +4329,86 @@ SPACE_STEPS = 4
 SPACE_SCENES = 5
 
 
+@contextlib.contextmanager
+def caught_results(module, name, record):
+  """Wraps module.name to append each call's result to `record`."""
+  real = getattr(module, name)
+
+  def wrapped(*args, **kwargs):
+    record.append(real(*args, **kwargs))
+    return record[-1]
+
+  setattr(module, name, wrapped)
+  try:
+    yield
+  finally:
+    setattr(module, name, real)
+
+
+def part_peaks(torch, model, optimizer, dev, run):
+  """Runs `run()` (one step) with the peak of allocated memory read and
+  reset at the step's seams: the GT (up to the model's forward), the
+  forward, the backward (the loss, its backward and the gradients'
+  all-reduce, up to the optimizer) and the optimizer's update. Returns
+  (run's result, {part: peak bytes})."""
+  parts, current = {}, ["gt"]
+
+  def seam(name):
+    def hook(*_):
+      parts[current[0]] = torch.cuda.max_memory_allocated(dev)
+      torch.cuda.reset_peak_memory_stats(dev)
+      current[0] = name
+    return hook
+
+  hooks = [model.register_forward_pre_hook(seam("forward")),
+           model.register_forward_hook(seam("backward")),
+           optimizer.register_step_pre_hook(seam("optimizer"))]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats(dev)
+  try:
+    out = run()
+    torch.cuda.synchronize()
+    seam("done")()
+  finally:
+    for hook in hooks:
+      hook.remove()
+  return out, parts
+
+
 def space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
-               depth_shard=None):
-  """One h7 step from SEED + 160's weights on `batch`, then TRAIN_RUNS
-  timed steps: its figures, with the peak of memory allocated over both
-  above what was allocated before the model was made, and in the first
-  step the memory the decoder's forward leaves allocated (its saved
-  activations and logits) and what was allocated above the start when
-  it began (the GT's labels and the encoder's saved activations)."""
+               depth_shard=None, route="shared", timed=True,
+               deterministic=False):
+  """run_space_step with the GT's route: "shared" over the space group
+  where the batch divides (the step's own choice), or "replicated" (the
+  sharing turned off: train/gt.py::shares_over_space)."""
+  from corenet_tpu_torch.train import gt
+  shares = gt.shares_over_space
+  if route == "replicated":
+    gt.shares_over_space = lambda *_: False
+  try:
+    return run_space_step(torch, mods, CoreNet, config, batch, dtype, packed,
+                          dev, depth_shard, timed, deterministic)
+  finally:
+    gt.shares_over_space = shares
+
+
+def run_space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
+                   depth_shard, timed, deterministic):
+  """One h7 step from SEED + 160's weights on `batch`, a second one with
+  the peak of each of its parts (part_peaks; Adam's moments exist from
+  the first), then (`timed`) TRAIN_RUNS timed steps: its figures, with
+  the peak of memory allocated over all of them above what was allocated
+  before the model was made, and in the first step the memory the
+  decoder's forward leaves allocated (its saved activations and logits)
+  and what was allocated above the start when it began (the GT's labels
+  and the encoder's saved activations), the labels' digest, and the
+  batch of each K3 and K4 launch. `deterministic` runs cuDNN's
+  deterministic algorithms."""
   from corenet_tpu_torch.parallel import mesh
+  from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
-  op = mods[0]
+  op, _, scatter, phased = mods
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   base = torch.cuda.memory_allocated(dev)
@@ -4326,7 +4421,7 @@ def space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
   state = create_train_state(model, device=dev)
   step = make_train_step(state.model, state.optimizer, "FG_BG", OUTPUT_RES,
                          voxelization_kwargs=H7_VOX)
-  backwards = []
+  backwards, labels, k3_calls, k4_calls = [], [], [], []
   marks = []
   hooks = [model.decoder.register_forward_pre_hook(
       lambda *_: marks.append(torch.cuda.memory_allocated(dev))),
@@ -4335,21 +4430,39 @@ def space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
   torch.cuda.synchronize()
   zero_counts(*mods)
   count = mesh.collective_count
+  routes = dict(gt.route_counts)
   start = torch.cuda.memory_allocated(dev)
+  torch.backends.cudnn.deterministic = deterministic
   try:
-    with caught_calls(op, "skip_gather_backward", backwards):
+    with contextlib.ExitStack() as stack:
+      stack.enter_context(caught_calls(op, "skip_gather_backward", backwards))
+      stack.enter_context(caught_results(gt, "labels_slab", labels))
+      # Each launch's scenes only: its tensors would move the peaks.
+      scenes = lambda args, kwargs: args[0].shape[0]  # noqa: E731
+      stack.enter_context(caught_calls(scatter, "block_scatter_or_forward",
+                                       k3_calls, scenes))
+      stack.enter_context(caught_calls(phased, "phased_gt_forward",
+                                       k4_calls, scenes))
       (state, metrics), renorm = renorm_collectives(
           torch, model, lambda: step(state, batch))
       torch.cuda.synchronize()
   finally:
+    torch.backends.cudnn.deterministic = False
     for hook in hooks:
       hook.remove()
+  if len(labels) != 1:
+    raise AssertionError(f"space step: {len(labels)} labels_slab calls")
   out = {"decoder_forward_gib": (marks[1] - marks[0]) / 2**30,
          "before_decoder_gib": (marks[0] - start) / 2**30,
          "loss": float(metrics["loss"]), "launches": launch_counts(*mods),
+         "k3_scenes": k3_calls, "k4_scenes": k4_calls,
+         "labels_digest": tensors_digest([labels[0][0].cpu()]),
+         "labels_shape": list(labels[0][0].shape),
          "packed_order_backwards": sum(1 for args, _ in backwards
                                        if args[0].dim() == 4),
          "collectives": mesh.collective_count - count,
+         "routes": {k: v - routes[k] for k, v in gt.route_counts.items()
+                    if v != routes[k]},
          "renorm_collectives": renorm,
          "shard_stage": model.decoder.shard_stage,
          "global_step": state.global_step,
@@ -4357,16 +4470,71 @@ def space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
                    for n, p in model.named_parameters()},
          "stats": {n: b.detach().cpu() for n, b in model.named_buffers()},
          "params_digest": params_digest(model)}
-  times = step_times(torch, step, state, batch)
-  out.update(step_ms=statistics.median(times), step_ms_each=times,
-             peak_gib=(torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+  del labels
+  first_peak = torch.cuda.max_memory_allocated(dev)
+  _, peaks = part_peaks(torch, model, state.optimizer, dev,
+                        lambda: step(state, batch))
+  out["part_peak_gib"] = {k: (v - base) / 2**30 for k, v in peaks.items()}
+  if timed:
+    times = step_times(torch, step, state, batch)
+    out.update(step_ms=statistics.median(times), step_ms_each=times)
+  out["peak_gib"] = (max(first_peak, *peaks.values(),
+                         torch.cuda.max_memory_allocated(dev)) - base) / 2**30
   del model, state, step, metrics
   torch.cuda.empty_cache()
   return out
 
 
+def space_gt_times(torch, mods, rank, dev, batch):
+  """Phase 15 (d)'s GT on the card, rank by rank while the other ranks
+  wait: K3 and K4 (s = 4) on this rank's share of the scenes (the shared
+  route's launches) and on the whole batch (the replicated route's),
+  each against its plain version with the device time of the GT's parts
+  (gt_kernel_rows)."""
+  from corenet_tpu_torch.parallel import mesh
+  from corenet_tpu_torch.train import gt
+  from corenet_tpu_torch.voxel import packed as packed_mod
+  _, _, scatter, phased = mods
+  per = BATCH // DIST_WORLD
+  out = {}
+  for turn in range(DIST_WORLD):
+    mesh.barrier(f"space gt times {turn}")
+    if turn != rank:
+      continue
+    for name, lo, n in (("share", rank * per, per), ("whole", 0, BATCH)):
+      part = {k: batch[k][lo:lo + n] for k in GT_KEYS}
+      rounds0 = packed_mod.round_count
+      packed_or, _ = gt.voxelize_batch_packed_fgbg(
+          *(part[k] for k in GT_KEYS), resolution=OUTPUT_RES, **H7_VOX)
+      rounds = packed_mod.round_count - rounds0
+      k3, k4, split = gt_kernel_rows(
+          torch, scatter, phased, part, packed_or, rounds, s=4,
+          where=f"on rank {rank}'s {n} scenes ({name})")
+      out[name] = {"scenes": n, "k3": k3, "k4": k4, "split": split}
+      del packed_or
+  mesh.barrier("space gt times done")
+  # The labels' trade, on the host clock: what space_shared sends.
+  depth = OUTPUT_RES[0] // 4 // DIST_WORLD
+  rows = torch.zeros((DIST_WORLD, per, depth, OUTPUT_RES[1] // 4,
+                      OUTPUT_RES[2] // 4 * 64), dtype=torch.uint8,
+                     device=dev)
+  times = []
+  for _ in range(5):
+    mesh.barrier("space all-to-all")
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    mesh.space_all_to_all(rows)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - begin) * 1e3)
+  out["labels_all_to_all"] = {"bytes_per_rank": rows.numel(),
+                              "ms": statistics.median(times)}
+  return out
+
+
 def space_worker_step(torch, mods, rank, dev, root, batch_path):
-  """Phase 15 (a) and (b) on one space rank: each case on its slab."""
+  """Phase 15 (a), (b) and (d) on one space rank: each case on its slab,
+  the GT shared over the space ranks; the packed cases again with the GT
+  replicated; then the GT's kernels and parts, rank by rank."""
   from corenet_tpu_torch.models.corenet import CoreNetConfig, DecoderConfig
   from corenet_tpu_torch.models.corenet import CoreNet
   from corenet_tpu_torch.parallel import mesh
@@ -4374,18 +4542,30 @@ def space_worker_step(torch, mods, rank, dev, root, batch_path):
   batch = {k: v.to(dev) for k, v in torch.load(batch_path).items()}
   config = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
   out = {"layout": (layout.data, layout.space, mesh.space_index())}
+  shard = (mesh.space_index(), DIST_WORLD)
   for name, dtype, packed in SPACE_CASES:
     result = space_step(torch, mods, CoreNet, config, batch, dtype, packed,
-                        dev, depth_shard=(mesh.space_index(), DIST_WORLD))
+                        dev, depth_shard=shard)
     if rank != 0:  # rank 0's gradients stand for both (the digests)
       result["grads_digest"] = tensors_digest(result.pop("grads").values())
     out[name] = result
+    if not packed:
+      continue
+    # (d): both routes under cuDNN's deterministic algorithms.
+    for route in ("shared", "replicated"):
+      again = space_step(torch, mods, CoreNet, config, batch, dtype, packed,
+                         dev, depth_shard=shard, route=route, timed=False,
+                         deterministic=True)
+      if rank != 0:
+        again["grads_digest"] = tensors_digest(again.pop("grads").values())
+      out[name, route] = again
+  out["gt_times"] = space_gt_times(torch, mods, rank, dev, batch)
   return out
 
 
 def space_steps(torch, mods, CoreNet, config, host_batch, dev, root):
-  """Phase 15 (a) and (b): each case in one process, then on DIST_WORLD
-  space ranks. Returns the figures."""
+  """Phase 15 (a), (b) and (d): each case in one process, then on
+  DIST_WORLD space ranks. Returns the figures."""
   path = os.path.join(root, "space_batch.pt")
   torch.save(host_batch, path)
   batch = {k: v.to(dev) for k, v in host_batch.items()}
@@ -4403,22 +4583,28 @@ def space_steps(torch, mods, CoreNet, config, host_batch, dev, root):
     stage = got[0]["shard_stage"]
     # The data-parallel collectives (BatchRenorm's, the loss's mean and
     # its backward, the gradients' one), the IoU's sums over the space
-    # group and their backward, and a halo exchange forward and backward
-    # for each of the two convolutions of every tower from the shard
-    # stage on.
+    # group and their backward, the labels' all-to-all, and a halo
+    # exchange forward and backward for each of the two convolutions of
+    # every tower from the shard stage on. gloo on CUDA tensors: every
+    # one an all-reduce (the halos' and the all-to-all's zeroed slots).
     halos = 2 * 2 * (7 - stage)
-    want = got[0]["renorm_collectives"] + 2 + 1 + 2 + halos
+    want = got[0]["renorm_collectives"] + 2 + 1 + 2 + 1 + halos
     for rank, r in enumerate(got):
       if (r["launches"] != (4, 4, 1, 1, 1)
           or r["packed_order_backwards"] != (1 if packed else 0)
           or r["global_step"] != BATCH or r["collectives"] != want
+          or r["routes"] != {"space_shared": 1}
+          or r["k3_scenes"] != [BATCH // DIST_WORLD]
+          or r["k4_scenes"] != [BATCH // DIST_WORLD]
           or r["shard_stage"] != 2):
         raise AssertionError(
             f"space {name} rank {rank} launched {r['launches']} "
-            f"({r['packed_order_backwards']} backward(s) in packed order), "
+            f"({r['packed_order_backwards']} backward(s) in packed order; "
+            f"K3 on {r['k3_scenes']} and K4 on {r['k4_scenes']} scenes), "
             f"counted {r['global_step']}, made {r['collectives']} "
-            f"collectives (expected {want}), sharded from tower "
-            f"{r['shard_stage']}")
+            f"collectives (expected {want} "
+            f"all-reduces), took the GT routes {r['routes']}, sharded from "
+            f"tower {r['shard_stage']}")
     if not (got[0]["loss"] == got[1]["loss"]
             and got[0]["params_digest"] == got[1]["params_digest"]
             and tensors_digest(got[0]["grads"].values())
@@ -4458,22 +4644,27 @@ def space_steps(torch, mods, CoreNet, config, host_batch, dev, root):
         "rank_step_ms": [r["step_ms"] for r in got],
         "one_process_peak_gib": ref["peak_gib"],
         "rank_peak_gib": [r["peak_gib"] for r in got],
+        "one_process_part_peak_gib": ref["part_peak_gib"],
+        "rank_part_peak_gib": [r["part_peak_gib"] for r in got],
         "one_process_decoder_forward_gib": ref["decoder_forward_gib"],
         "rank_decoder_forward_gib": got[0]["decoder_forward_gib"],
         "one_process_before_decoder_gib": ref["before_decoder_gib"],
         "rank_before_decoder_gib": got[0]["before_decoder_gib"], "ok": ok}
     out[name] = figures
     log(f"space ({'a' if packed else 'b'}) h7 {name} on data 1 × space "
-        f"{DIST_WORLD} (gloo ranks on cuda:0, sharded from tower {stage}) "
+        f"{DIST_WORLD} (gloo ranks on cuda:0, sharded from tower {stage}, "
+        f"the GT shared over the space ranks) "
         f"against one process on the same 4 scenes: loss "
         f"{ref['loss']:.7f}, {loss_rel:.2e} relative; statistics "
         f"{stats_rel:.2e} ({stats_name}); gradients together "
         f"{together:.2e}, worst {worst:.2e} ({worst_name}), levels: cosine "
         f"together {levels[0]:.6f}, lowest {levels[1]:.6f}, next to the "
         f"loss {levels[2]:.2e}; launches per rank {figures['launches']} "
-        f"({got[0]['packed_order_backwards']} backward(s) in packed order); "
-        f"{got[0]['collectives']} collectives per step, {halos} of them "
-        f"halo exchanges and 2 IoU sums over the space group; both ranks' "
+        f"({got[0]['packed_order_backwards']} backward(s) in packed order; "
+        f"K3 and K4 each once on {BATCH // DIST_WORLD} scenes); "
+        f"{got[0]['collectives']} all-reduces per step, {halos} of them "
+        f"halo exchanges, 2 IoU sums over the space group and 1 labels' "
+        f"all-to-all; both ranks' "
         f"losses, statistics, gradients and parameters after Adam "
         f"bit-equal; step (median of {TRAIN_RUNS}) {ref['step_ms']:.3f} ms "
         f"in one process, per rank {figures['rank_step_ms']} ms; peak "
@@ -4486,9 +4677,110 @@ def space_steps(torch, mods, CoreNet, config, host_batch, dev, root):
         f"rule: {rule}: " + ("passed" if ok else "FAILED"))
     if not ok:
       failed.append(name)
-  log(f"space (a, b): the two ranks' processes took {out['workers_s']:.1f} s")
+    if packed:
+      out[name]["d"] = space_routes(
+          torch, ref, got, [r[name, "shared"] for r in ranks],
+          [r[name, "replicated"] for r in ranks], name)
+  out["gt_times"] = [r["gt_times"] for r in ranks]
+  for rank, times in enumerate(out["gt_times"]):
+    share, trade = times["share"], times["labels_all_to_all"]
+    log(f"space (d) rank {rank}: GT device time on its {share['scenes']} "
+        f"scenes {share['split']['sum_ms']:.4f} ms, on all {BATCH} "
+        f"{times['whole']['split']['sum_ms']:.4f} ms (CUDA graphs, the other "
+        f"rank waiting); K3 {share['k3']['ms']:.4f} and K4 (s = 4) "
+        f"{share['k4']['ms']:.4f} ms on {share['scenes']} scenes, equal to "
+        f"their plain versions; the labels' all-to-all {trade['ms']:.3f} ms "
+        f"({trade['bytes_per_rank']} B per rank, the host clock)")
+  log(f"space (a, b, d): the two ranks' processes took "
+      f"{out['workers_s']:.1f} s")
   if failed:
     raise AssertionError(f"space steps outside their rules: {failed}")
+  return out
+
+
+def space_routes(torch, ref, timed, shared, replicated, name):
+  """Phase 15 (d) for one packed case, both routes under cuDNN's
+  deterministic algorithms: the GT shared over the space ranks against
+  the GT replicated on each, rank by rank (labels, loss and statistics
+  bit-equal; the gradients, which K1's backward adds with atomics in an
+  order no two steps share, within DIST_SAME_GRAD_TOL each, but the conv
+  biases a BatchRenorm normalizes (grad_gap); K3 and K4 on
+  B/S and on B scenes; one collective more), the shared route's loss
+  against one process's bit for bit, and the peaks of memory,
+  whole and per part, beside one process's and the timed (a) run's.
+  Returns the figures."""
+  def gib(g):
+    return round(g, 3)
+
+  def parts(r):
+    return {k: gib(v) for k, v in r["part_peak_gib"].items()}
+
+  for rank, (s, r) in enumerate(zip(shared, replicated)):
+    stats = [k for k, v in s["stats"].items()
+             if not torch.equal(v, r["stats"][k])]
+    unequal = [what for what, same in (
+        ("labels", s["labels_digest"] == r["labels_digest"]
+         and s["labels_shape"] == r["labels_shape"]),
+        ("loss", s["loss"] == r["loss"]),
+        (f"statistics {stats[:4]} (of {len(stats)})", not stats))
+               if not same]
+    if unequal:
+      raise AssertionError(f"space (d) {name} rank {rank}: the shared and "
+                           f"the replicated GT's {unequal} differ")
+    if (r["routes"] != {"replicated": 1} or r["launches"] != s["launches"]
+        or r["k3_scenes"] != [BATCH] or r["k4_scenes"] != [BATCH]
+        or r["collectives"] != s["collectives"] - 1):
+      raise AssertionError(
+          f"space (d) {name} rank {rank}: the replicated route took "
+          f"{r['routes']}, launched {r['launches']} (K3 on "
+          f"{r['k3_scenes']}, K4 on {r['k4_scenes']} scenes), made "
+          f"{r['collectives']} collectives against {s['collectives']}")
+  if shared[0]["loss"] != ref["loss"]:
+    raise AssertionError(f"space (d) {name}: the shared GT's loss "
+                         f"{shared[0]['loss']!r} is not one process's "
+                         f"{ref['loss']!r} bit for bit")
+  # The conv biases a BatchRenorm normalizes are left out (grad_gap):
+  # their true gradient is 0 and both sides hold rounding dust.
+  _, worst_rel, worst, _, _, _ = grad_gap(replicated[0]["grads"],
+                                          shared[0]["grads"])
+  if not worst_rel <= DIST_SAME_GRAD_TOL:
+    raise AssertionError(f"space (d) {name}: the shared and the replicated "
+                         f"GT's gradient {worst} differ by {worst_rel}")
+  out = {"labels_equal": True, "loss_equal": True, "statistics_equal": True,
+         "worst_grad_rel": worst_rel, "worst_grad": worst,
+         "grads_bit_equal": all(
+             torch.equal(g, replicated[0]["grads"][k])
+             for k, g in shared[0]["grads"].items()),
+         "params_bit_equal": (shared[0]["params_digest"]
+                              == replicated[0]["params_digest"]),
+         "loss_equals_one_process": True,
+         "one_process_peak_gib": ref["peak_gib"],
+         "timed_shared_peak_gib": [t["peak_gib"] for t in timed],
+         "shared_peak_gib": [s["peak_gib"] for s in shared],
+         "replicated_peak_gib": [r["peak_gib"] for r in replicated],
+         "one_process_part_peak_gib": ref["part_peak_gib"],
+         "shared_part_peak_gib": [s["part_peak_gib"] for s in shared],
+         "replicated_part_peak_gib": [r["part_peak_gib"] for r in replicated],
+         "shared_collectives": shared[0]["collectives"],
+         "replicated_collectives": replicated[0]["collectives"]}
+  log(f"space (d) h7 {name}: the GT shared over the space ranks (K3 and K4 "
+      f"once per rank on {BATCH // DIST_WORLD} scenes) against the GT "
+      f"replicated (on {BATCH}), cuDNN deterministic: labels, loss and "
+      f"statistics bit-equal on "
+      f"both ranks; gradients (rank 0) worst {worst_rel:.2e} ({worst}; "
+      f"bit-equal: {out['grads_bit_equal']}; parameters after Adam "
+      f"bit-equal: {out['params_bit_equal']}); the loss equal to one "
+      f"process's bit for bit; all-reduces per step shared "
+      f"{out['shared_collectives']}, replicated "
+      f"{out['replicated_collectives']}; peak memory per rank shared "
+      f"{[gib(g) for g in out['shared_peak_gib']]} GiB (over the "
+      f"{TRAIN_RUNS + 2} steps of (a): "
+      f"{[gib(g) for g in out['timed_shared_peak_gib']]}), "
+      f"replicated "
+      f"{[gib(g) for g in out['replicated_peak_gib']]} GiB, one process "
+      f"{gib(ref['peak_gib'])} GiB; peak by part of the second step (GiB "
+      f"above the start) shared rank 0 {parts(shared[0])}, replicated rank 0 "
+      f"{parts(replicated[0])}, one process {parts(ref)}")
   return out
 
 
@@ -4562,6 +4854,138 @@ def space_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
   out["part_seconds"] = {"a, b": steps_s, "c": out["seconds"] - steps_s}
   log(f"space phase: {out['seconds']:.1f} s ((a, b) {steps_s:.1f} s, (c) "
       f"{out['seconds'] - steps_s:.1f} s)")
+  return out
+
+
+# Phase 16: the 'space' axis's exchanges (parallel/mesh.py) over NCCL, one
+# card per rank: the labels' all-to-all against the row permutation and
+# the halo exchange against its definition, forward and backward, bit for
+# bit. It runs where the machine has two cards or more (up to NCCL_RANKS
+# of them) and says so where it has one.
+NCCL_RANKS = 4
+NCCL_HALOS = ((2, 2), (3, 3), (0, 3))  # k5; k7 transposed; one side only
+NCCL_SLAB = (BATCH, 32, 8, 32, 32)  # [B, C, slab, H, W]: h7's stage 3
+
+
+def nccl_rows(torch, rank, world):
+  """Rank `rank`'s all-to-all input: its share of phase-major h7 labels,
+  one row per space rank, from a seed."""
+  gen = torch.Generator().manual_seed(SEED + 190 + rank)
+  depth = OUTPUT_RES[0] // 4 // world
+  return torch.randint(0, 2, (world, BATCH // world, depth,
+                              OUTPUT_RES[1] // 4, OUTPUT_RES[2] // 4 * 64),
+                       generator=gen, dtype=torch.uint8)
+
+
+def nccl_slab(torch, rank):
+  """Rank `rank`'s slab and the output gradient of each halo case, from a
+  seed, on the CPU."""
+  gen = torch.Generator().manual_seed(SEED + 195 + rank)
+  x = torch.randn(NCCL_SLAB, generator=gen)
+  return x, {h: torch.randn(NCCL_SLAB[:2] + (h[0] + NCCL_SLAB[2] + h[1],)
+                            + NCCL_SLAB[3:], generator=gen)
+             for h in NCCL_HALOS}
+
+
+def nccl_halo_reference(torch, rank, world, h):
+  """The halo exchange's definition on rank `rank`: the neighbours' slices
+  around its slab (zeros past the grid's ends), and its input gradient,
+  the neighbours' halo gradients added back in the backward's order."""
+  lo, hi = h
+  size = NCCL_SLAB[2]
+  x, douts = nccl_slab(torch, rank)
+  prev = nccl_slab(torch, rank - 1) if rank > 0 else None
+  nxt = nccl_slab(torch, rank + 1) if rank < world - 1 else None
+  below = (prev[0].narrow(2, size - lo, lo) if prev
+           else torch.zeros_like(x.narrow(2, 0, lo)))
+  above = (nxt[0].narrow(2, 0, hi) if nxt
+           else torch.zeros_like(x.narrow(2, 0, hi)))
+  dx = douts[h].narrow(2, lo, size).clone()
+  if prev:
+    dx.narrow(2, 0, hi).add_(prev[1][h].narrow(2, lo + size, hi))
+  if nxt:
+    dx.narrow(2, size - lo, lo).add_(nxt[1][h].narrow(2, 0, lo))
+  return torch.cat([below, x, above], 2), dx
+
+
+def nccl_worker(torch, mods, rank, dev, root):
+  """Phase 16 on one rank of an NCCL group: each exchange, with its
+  collectives and its time on the host clock."""
+  from corenet_tpu_torch.parallel import mesh
+  world = mesh.process_count()
+  mesh.create_mesh(space=world)
+  x, douts = nccl_slab(torch, rank)
+  x, douts = x.to(dev), {h: d.to(dev) for h, d in douts.items()}
+  rows = nccl_rows(torch, rank, world).to(dev)
+
+  def timed(fn):
+    times = []
+    for _ in range(10):
+      mesh.barrier("nccl timing")
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      fn()
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - begin) * 1e3)
+    return statistics.median(times)
+
+  def halo(h):
+    xt = x.clone().requires_grad_(True)
+    y = mesh.halo_exchange(xt, 2, *h)
+    (y * douts[h]).sum().backward()
+    return y.detach(), xt.grad
+
+  count = mesh.collective_count
+  out = {"a2a": mesh.space_all_to_all(rows).cpu(),
+         "a2a_collectives": mesh.collective_count - count,
+         "a2a_ms": timed(lambda: mesh.space_all_to_all(rows))}
+  for h in NCCL_HALOS:
+    count = mesh.collective_count
+    y, dx = halo(h)
+    out["halo", h] = (y.cpu(), dx.cpu(), mesh.collective_count - count)
+    out["halo_ms", h] = timed(lambda: halo(h))
+  return out
+
+
+def space_nccl_phase(torch):
+  """Phase 16. Returns the figures."""
+  count = torch.cuda.device_count()
+  if count < 2:
+    log(f"space-nccl: not run: this machine has {count} CUDA device(s), and "
+        "the exchanges over NCCL need a card per rank (NCCL refuses two "
+        "ranks on one card)")
+    return {"ran": False, "cards": count}
+  world = min(count, NCCL_RANKS)
+  start = time.perf_counter()
+  with tempfile.TemporaryDirectory() as root:
+    ranks = run_dist_workers(torch, "nccl", "nccl", root, [], world=world,
+                             card_per_rank=True)
+  out = {"ran": True, "ranks": world, "seconds": time.perf_counter() - start,
+         "a2a_ms": [r["a2a_ms"] for r in ranks],
+         "halo_ms": {str(h): [r["halo_ms", h] for r in ranks]
+                     for h in NCCL_HALOS}}
+  for rank, r in enumerate(ranks):
+    want = torch.stack([nccl_rows(torch, i, world)[rank]
+                        for i in range(world)])
+    if not (torch.equal(r["a2a"], want) and r["a2a_collectives"] == 1):
+      raise AssertionError(f"space-nccl rank {rank}: the all-to-all is not "
+                           f"the row permutation, or took "
+                           f"{r['a2a_collectives']} collectives")
+    for h in NCCL_HALOS:
+      y, dx, collectives = r["halo", h]
+      want_y, want_dx = nccl_halo_reference(torch, rank, world, h)
+      if not (torch.equal(y, want_y) and torch.equal(dx, want_dx)
+              and collectives == 2):
+        raise AssertionError(f"space-nccl rank {rank}: halos {h} differ "
+                             f"from their definition, or took "
+                             f"{collectives} collectives")
+  log(f"space-nccl: {world} ranks over NCCL, a card each: the labels' "
+      f"all-to-all is the row permutation and the halos {NCCL_HALOS} "
+      f"(forward and backward, {list(NCCL_SLAB)} slabs) equal their "
+      f"definition bit for bit, each by zeroed-slot all-reduces; host ms "
+      f"per call on the card's tensors (median of 10) all-to-all "
+      f"{out['a2a_ms']}, halo forward + backward {out['halo_ms']}; "
+      f"{out['seconds']:.1f} s")
   return out
 
 
@@ -4811,6 +5235,10 @@ def main() -> int:
   # 15. The 'space' axis: the decoder's depth over 2 gloo ranks.
   space = space_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig,
                       image, camera, dev)
+  torch.cuda.empty_cache()
+
+  # 16. The 'space' axis's NCCL transports, where there are several cards.
+  space_nccl = space_nccl_phase(torch)
 
   # Launches per path, each counted from zero just before the path ran:
   # one serving forward, one training step, one eval run of 3 batches, one
@@ -4962,6 +5390,17 @@ def main() -> int:
                                    "bound_ms", "library_ms", "s2_ms")},
        "bound_by": "bytes", "library_call": None,
        "timing": entry["timing"], "shapes": [k4]}]
+  # K3 and K4 on a space rank (phase 15 (d)): one launch each per step on
+  # the rank's share of the scenes, held against their plain versions.
+  space_case = space["steps"]["packed bfloat16"]
+  for index, (gt_entry, key) in enumerate(((gt_entries[0], "k3"),
+                                          (gt_entries[1], "k4")), 3):
+    gt_entry["space_rank"] = [
+        {"rank": rank, "launches": space_case["launches"][rank][index],
+         "scenes": times["share"]["scenes"],
+         **{k: times["share"][key][k]
+            for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}}
+        for rank, times in enumerate(space["steps"]["gt_times"])]
   entry["serve"] = {"h7": h7_serve, "y1": y1_serve}
   entry["packed"] = {key: packed[key] for key in ("serve", "train", "clis",
                                                   "seconds")}
@@ -4976,6 +5415,7 @@ def main() -> int:
   entry["distributed"] = dist
   entry["host_gt"] = host_gt
   entry["space"] = space
+  entry["space_nccl"] = space_nccl
   log(f"h7 scenes/s {h7_serve['scenes_per_s']:.3f}; y1 scenes/s "
       f"{y1_serve['scenes_per_s']:.3f} (median of {SERVE_RUNS} forwards); h7 "
       f"training scenes/s {BATCH * 1e3 / train_ms:.3f} on host GT, "
@@ -4989,7 +5429,7 @@ def main() -> int:
       f" on host GT, y1 {BATCH * 1e3 / bf16['y1']['median_ms']:.3f}; h7 "
       f"float32 with TF32 "
       f"{BATCH * 1e3 / bf16['h7_gt_tf32']['median_ms']:.3f}")
-  log(f"smoke: all 15 phases in {time.perf_counter() - smoke_start:.1f} s")
+  log(f"smoke: all 16 phases in {time.perf_counter() - smoke_start:.1f} s")
   log(smi)
   log(json.dumps({"kernels": [entry, bwd_entry, fgbg_entry] + gt_entries
                   + packed_entries}))

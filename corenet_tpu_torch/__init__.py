@@ -57,7 +57,7 @@ BatchRenorm statistics and loss, averaged gradients, sharded loaders,
 rank-0 checkpoints, cross-rank eval metrics), and training with the
 decoder's depth sharded over space ranks (`parallel.mesh.create_mesh`,
 `CoreNet(depth_shard=...)`: halo exchanges, per-scene loss sums over the
-space group). Public functions keep the JAX package's channel-last
+space group, ground truth shared over it). Public functions keep the JAX package's channel-last
 layouts.
 Ground truth on the host (`gt_mode="host"`: the C++ ops in the loader)
 trains as the JAX package's does.

@@ -24,7 +24,8 @@ cuda:LOCAL_RANK, and logs each rank to <output_path>/logs/.
 
 --space=N lays the processes out as data × N (parallel/mesh.py): the N
 space ranks of each data group train one depth slab each of the decoder
-on the same batches; N must divide the number of processes. Each rank
+on the same batches, and voxelize 1/N of each batch's scenes where N
+divides the batch; N must divide the number of processes. Each rank
 needs its own process, so --space > 1 comes with --multihost:
   python -m torch.distributed.run --standalone --nproc_per_node=2 \\
       -m corenet_tpu_torch.cli.train --multihost --space=2 ...

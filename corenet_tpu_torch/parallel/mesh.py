@@ -33,16 +33,23 @@ holding its space ranks. The space ranks of a data group step on the same
 batch, each on one depth slab of the decoder (models/decoder.py); the
 convolutions read their neighbours' boundary slices through
 `halo_exchange`, and the IoU losses sum each scene over the group
-(`space_sum`). Both are all-reduces over the space group whose backward is
-the same all-reduce, so the rule above holds with world size
-data × space: every rank's loss is the global loss, the encoder and the
-decoder's replicated stages give every space rank the same values, and
-`all_reduce_gradients` over the whole world is unchanged. A halo travels
-as an all-reduce of a zeroed buffer in which each rank fills its own slot:
-gloo takes CUDA tensors only in all_reduce and broadcast, and NCCL refuses
-two ranks on one card, so this one transport serves the CPU, one card
-with gloo ranks and several cards with NCCL. Without `create_mesh` the
-layout is data = world size, space = 1.
+(`space_sum`, an all-reduce whose backward is the same all-reduce). The
+halo exchange's backward is its adjoint, the same exchange in reverse, so
+the rule above holds with world size data × space: every rank's loss is
+the global loss, the encoder and the decoder's replicated stages give
+every space rank the same values, and `all_reduce_gradients` over the
+whole world is unchanged. The ground truth is shared over the space
+group: each rank voxelizes its share of the scenes and the ranks trade
+depth slabs (`space_all_to_all`, train/gt.py::space_shared). Without
+`create_mesh` the layout is data = world size, space = 1.
+
+The halos and the all-to-all travel as an all-reduce of a zeroed buffer
+in which each rank fills its own slot: gloo takes CUDA tensors only in
+all_reduce and broadcast, and NCCL refuses two ranks on one card, so this
+one transport serves the CPU, one card with gloo ranks and several cards
+with NCCL. It moves space times the bytes a neighbour needs; on four
+NVLink H100s the backend's own point-to-point sends were slower at h7's
+halos (PERF.md).
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Any, Iterable, List, Optional, Sequence
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -59,8 +66,8 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 log = logging.getLogger(__name__)
 
 # Collectives launched on device tensors (the step's reduces, their
-# backward, the gradient all-reduce, state broadcasts); read by callers
-# that count them per step.
+# backward, the gradient all-reduce, state broadcasts, halo exchanges, the
+# labels' all-to-all); read by callers that count them per step.
 collective_count = 0
 
 _host_group = None
@@ -259,36 +266,93 @@ def space_sum(x: torch.Tensor) -> torch.Tensor:
   return _AllReduceSum.apply(x, _mesh.space_group)
 
 
+def space_all_to_all(x: torch.Tensor) -> torch.Tensor:
+  """Trades rows over this rank's space group: `x` is [space, ...], row j
+  what this rank sends to space rank j; the result is [space, ...], row i
+  what space rank i sent to this one. One slot all-reduce (module
+  docstring); not differentiable (the labels it carries have no
+  gradient). `x` itself when space is 1."""
+  n, i = space_count(), space_index()
+  if x.shape[0] != n:
+    raise ValueError(f"an all-to-all over {n} space ranks takes [{n}, ...], "
+                     f"got {tuple(x.shape)}")
+  if n == 1:
+    return x
+  slots = x.new_zeros((n,) + tuple(x.shape))
+  slots[i] = x
+  return _all_reduce(slots, _mesh.space_group)[:, i].contiguous()
+
+
+def _trade(to_prev: torch.Tensor, to_next: torch.Tensor, dim: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Sends `to_prev` to the previous space rank and `to_next` to the next
+  one, and returns (what the previous one sent as its `to_next`, what the
+  next one sent as its `to_prev`); zeros where there is no neighbour. One
+  slot all-reduce; every rank's `to_prev` and `to_next` have the same
+  shapes."""
+  n, i = space_count(), space_index()
+  mine = torch.cat([to_prev, to_next], dim)
+  slots = torch.stack([mine if r == i else torch.zeros_like(mine)
+                       for r in range(n)])
+  _all_reduce(slots, _mesh.space_group)
+  first = to_prev.shape[dim]
+  from_prev = (slots[i - 1].narrow(dim, first, to_next.shape[dim])
+               if i > 0 else torch.zeros_like(to_next))
+  from_next = (slots[i + 1].narrow(dim, 0, first) if i < n - 1
+               else torch.zeros_like(to_prev))
+  return from_prev, from_next
+
+
+class _HaloExchange(torch.autograd.Function):
+  """`halo_exchange` on a space group of more than one rank. Forward: this
+  rank's first `hi` slices go to the previous rank and its last `lo` to
+  the next; its halos come back from them. Backward, the adjoint: the
+  gradient of the halo below goes back to the previous rank, where it adds
+  to its last `lo` slices, and that of the halo above to the next rank's
+  first `hi`."""
+
+  @staticmethod
+  def forward(ctx, x, dim, lo, hi):
+    ctx.dim, ctx.lo, ctx.hi = dim, lo, hi
+    size = x.shape[dim]
+    below, above = _trade(x.narrow(dim, 0, hi), x.narrow(dim, size - lo, lo),
+                          dim)
+    return torch.cat([below, x, above], dim)
+
+  @staticmethod
+  def backward(ctx, grad):
+    dim, lo, hi = ctx.dim, ctx.lo, ctx.hi
+    size = grad.shape[dim] - lo - hi
+    from_prev, from_next = _trade(grad.narrow(dim, 0, lo),
+                                  grad.narrow(dim, lo + size, hi), dim)
+    dx = grad.narrow(dim, lo, size).clone(
+        memory_format=torch.contiguous_format)
+    dx.narrow(dim, 0, hi).add_(from_prev)
+    dx.narrow(dim, size - lo, lo).add_(from_next)
+    return dx, None, None, None
+
+
 def halo_exchange(x: torch.Tensor, dim: int, lo: int, hi: int
                   ) -> torch.Tensor:
   """`x`, this rank's depth slab along `dim`, extended by `lo` slices of
   the previous space rank's slab and `hi` of the next one's, with zeros
   past the grid's two ends (the first and the last rank): what a
-  convolution's zero padding reads there. Differentiable; one all-reduce
-  over the space group (none when space is 1), in which this rank's slot
-  holds its first `hi` and last `lo` slices. Halos come from the nearest
+  convolution's zero padding reads there. Differentiable; one slot
+  all-reduce over the space group forward and one backward (none when
+  space is 1 or both halos are empty). Halos come from the nearest
   neighbours only, so neither may be deeper than the slab."""
   size = x.shape[dim]
   if lo < 0 or hi < 0 or lo > size or hi > size:
     raise ValueError(f"a halo of {lo} and {hi} slices does not come from "
                      f"the neighbours' slabs of {size}: halos are exchanged "
                      "with the nearest space ranks only")
-
-  def zeros(n):
+  if space_count() == 1:
     shape = list(x.shape)
-    shape[dim] = n
-    return x.new_zeros(shape)
-
-  n, i = space_count(), space_index()
-  if n == 1:
-    return torch.cat([zeros(lo), x, zeros(hi)], dim)
-  mine = torch.cat([x.narrow(dim, 0, hi), x.narrow(dim, size - lo, lo)], dim)
-  slots = torch.stack([mine if r == i else torch.zeros_like(mine)
-                       for r in range(n)])
-  slots = _AllReduceSum.apply(slots, _mesh.space_group)
-  below = slots[i - 1].narrow(dim, hi, lo) if i > 0 else zeros(lo)
-  above = slots[i + 1].narrow(dim, 0, hi) if i < n - 1 else zeros(hi)
-  return torch.cat([below, x, above], dim)
+    return torch.cat([x.new_zeros(shape[:dim] + [lo] + shape[dim + 1:]), x,
+                      x.new_zeros(shape[:dim] + [hi] + shape[dim + 1:])], dim)
+  if lo == hi == 0:
+    return x
+  return _HaloExchange.apply(x, dim, lo, hi)
 
 
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
@@ -321,12 +385,12 @@ def all_reduce_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
 def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
   """Overwrites `tensors` in place with rank `src`'s, one broadcast per
   dtype. A no-op without a group."""
-  global collective_count
   if not dist.is_initialized():
     return
   for dtype in sorted({t.dtype for t in tensors}, key=str):
     same = [t for t in tensors if t.dtype == dtype]
     flat = _flatten_dense_tensors(same)
+    global collective_count
     collective_count += 1
     dist.broadcast(flat, src)
     for t, value in zip(same, _unflatten_dense_tensors(flat, same)):

@@ -22,23 +22,43 @@ The view → voxel transform is scale(m), m = max(D, H, W), followed by a
 shift of grid_offset − 0.5, so voxels are tested at their sampled
 locations; the returned v2x is the unshifted scale.
 
-Under the 'space' axis (parallel/mesh.py) every space rank voxelizes its
-data group's whole batch, as one process does, and keeps its depth slab
-of the labels (`depth_slab`). The JAX package spreads the voxelization
-over data × space and reshards the grids with an all-to-all; the labels
-are the same bits either way.
+Under the 'space' axis (parallel/mesh.py) a rank trains on its depth slab
+of the labels. The blocked routes (K3, and K4 for the phased labels) share
+the voxelization over the space group as the JAX package does
+(corenet_tpu/parallel/kernel_sharding.py's allow_space_batch): where the
+data group's batch divides by the space count, each space rank voxelizes
+its share of the scenes and the ranks trade depth slabs with an
+all-to-all (`space_shared`). Elsewhere (a batch that does not divide, the
+general rasterizer, the parity GT, a grid from the host) every space rank
+holds the whole labels and keeps its slab (`depth_slab`), where the JAX
+package would take its general voxelizer. The labels are the same bits
+either way.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.voxel import raster_fast
 from corenet_tpu_torch.voxel.fill import fill_inside_voxels
 from corenet_tpu_torch.voxel.voxelize import (
     get_sub_grid_centers, voxelize_triangles)
+
+
+# The labels' route under the 'space' axis (a depth_shard count > 1), one
+# count per `labels_slab` call that cuts a slab; read by tests, as the JAX package's
+# kernel_sharding.trace_counters.
+route_counts = {"space_shared": 0, "replicated": 0}
+
+
+def _slab_depth(depth: int, count: int) -> int:
+  if depth % count:
+    raise ValueError(f"a depth of {depth} does not split into {count} "
+                     "slabs")
+  return depth // count
 
 
 def depth_slab(labels: torch.Tensor, depth_shard: Tuple[int, int]
@@ -50,11 +70,65 @@ def depth_slab(labels: torch.Tensor, depth_shard: Tuple[int, int]
   index, count = depth_shard
   if count == 1:
     return labels
-  depth = labels.shape[1]
-  if depth % count:
-    raise ValueError(f"a depth of {depth} does not split into {count} "
-                     "slabs")
-  return labels.narrow(1, index * (depth // count), depth // count)
+  depth = _slab_depth(labels.shape[1], count)
+  return labels.narrow(1, index * depth, depth)
+
+
+def shares_over_space(batch_size: int, depth_shard: Tuple[int, int]) -> bool:
+  """Whether `space_shared` serves a batch: a space group of more than one
+  rank whose count divides the batch (the JAX package's
+  `batch % (data · space) == 0` for a data group's batch)."""
+  count = depth_shard[1]
+  return count > 1 and batch_size % count == 0
+
+
+GroundTruth = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+def space_shared(ground_truth: GroundTruth, arrays: Sequence[torch.Tensor],
+                 depth_shard: Tuple[int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """`labels_slab` with the voxelization shared over the space group:
+  space rank k runs `ground_truth` on scenes [k·B/S, (k+1)·B/S) of the
+  batch arrays, cuts each scene's labels into S depth slabs along dim 1
+  and sends slab j to rank j (`mesh.space_all_to_all`); it returns its
+  slab of all B scenes in batch order, contiguous, the same bits as
+  `depth_slab` of the whole batch's labels, and the batch's v2x.
+  `ground_truth` maps arrays with leading dim B/S to (labels [B/S, depth,
+  ...], v2x [B/S, 4, 4]), each scene's alone, and v2x the same for every
+  scene (the blocked voxelizers' unshifted scale). S must be more than 1
+  and divide B."""
+  index, count = depth_shard
+  b = arrays[0].shape[0]
+  if not shares_over_space(b, depth_shard):
+    raise ValueError(f"a batch of {b} does not share over {count} space "
+                     "ranks")
+  route_counts["space_shared"] += 1
+  per = b // count
+  mine, v2x = ground_truth(*(a[index * per:(index + 1) * per]
+                             for a in arrays))
+  rest = tuple(mine.shape[2:])
+  depth = _slab_depth(mine.shape[1], count)
+  slabs = mine.reshape((per, count, depth) + rest).transpose(0, 1)
+  labels = mesh.space_all_to_all(slabs).reshape((b, depth) + rest)
+  return labels, v2x[:1].expand((b,) + tuple(v2x.shape[1:])).contiguous()
+
+
+def labels_slab(ground_truth: GroundTruth, arrays: Sequence[torch.Tensor],
+                depth_shard: Tuple[int, int], shareable: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(this rank's depth slab of the labels, v2x) for `ground_truth(*arrays)`
+  → (labels [B, depth, ...], v2x [B, 4, 4]): the one place that picks the
+  labels' route. A `shareable` ground truth (a blocked route, each scene
+  voxelized alone) is shared over the space group where the batch divides
+  (`space_shared`); any other, or a batch that does not divide, is made
+  whole on every rank and cut (`depth_slab`)."""
+  if shareable and shares_over_space(arrays[0].shape[0], depth_shard):
+    return space_shared(ground_truth, arrays, depth_shard)
+  if depth_shard[1] > 1:
+    route_counts["replicated"] += 1
+  labels, v2x = ground_truth(*arrays)
+  return depth_slab(labels, depth_shard), v2x
 
 
 def _v2x(b: int, m: float, device) -> torch.Tensor:
@@ -196,6 +270,14 @@ def voxelize_batch_packed_fgbg(triangles, tri_mesh_slot, tri_valid,
   return out.contiguous(), _v2x(b, m, triangles.device)
 
 
+def blocked_grid_eligible(**kwargs) -> bool:
+  """Whether `voxelize_batch` takes the blocked rasterizer for these
+  kwargs: packed_fgbg_eligible, and num_label_values (when known) ≤ 256."""
+  num_label_values = kwargs.pop("num_label_values", None)
+  return ((num_label_values is None or num_label_values <= 256)
+          and packed_fgbg_eligible(**kwargs))
+
+
 def voxelize_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
                    grid_offsets, **kwargs):
   """Batched ground-truth voxelization → (labels [B, D, H, W], v2x
@@ -212,8 +294,7 @@ def voxelize_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
   num_label_values = kwargs.pop("num_label_values", None)
   d, h, w = kwargs["resolution"]
   m = float(max(d, h, w))
-  if ((num_label_values is None or num_label_values <= 256)
-      and packed_fgbg_eligible(**kwargs)):
+  if blocked_grid_eligible(num_label_values=num_label_values, **kwargs):
     label_dtype = (torch.uint8 if num_label_values is not None
                    else torch.int32)
     grid = _blocked_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,

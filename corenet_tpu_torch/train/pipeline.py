@@ -30,8 +30,11 @@ the train CLI's --space) the ranks form data × space: the space ranks of
 a data group load the same batches and train one depth slab each of a
 depth-sharded model (models/decoder.py), the epoch is sharded over the
 data groups, and the global batch is the configuration's batch times the
-data count. The recurrent evals run the unsharded eval twin, each rank on
-its shard of the eval set as above.
+data count. Where the batch divides by the space count, the step shares
+the device GT over the space ranks (train/gt.py::space_shared); on host
+GT every space rank's producer thread voxelizes the whole batch. The
+recurrent evals run the unsharded eval twin, each rank on its shard of
+the eval set as above.
 
 With `gt_mode="host"` the loader's producer thread voxelizes each batch
 with the native C++ ops (data/batching.py::host_voxelize) while the step

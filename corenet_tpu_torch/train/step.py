@@ -15,16 +15,20 @@ takes the same Adam step and counts the global batch.
 
 Under the 'space' axis (parallel/mesh.py::create_mesh) the space ranks of
 a data group step on the same batch with a depth-sharded model
-(`CoreNet(depth_shard=...)`): each voxelizes the whole batch, keeps its
-slab of the labels (train/gt.py::depth_slab), and trains on its slab of
-the logits; the loss sums each scene's IoU terms over the group
-(models/losses.py). The gradient all-reduce stays over the whole world,
-and the global batch is B · data_count().
+(`CoreNet(depth_shard=...)`): each trains on its slab of the logits and
+of the labels, which the blocked GT routes share over the space group
+where the batch divides by the space count (each rank voxelizes its
+share of the scenes, then an all-to-all: train/gt.py::space_shared), and
+which are otherwise made whole and cut (train/gt.py::depth_slab). The
+loss sums each scene's IoU terms over the group (models/losses.py). The
+gradient all-reduce stays over the whole world, and the global batch is
+B · data_count().
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -97,7 +101,10 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   batch's, the update is the global gradient's, and global_step advances
   by the global batch, B · data_count() (the world size without a
   'space' axis). With a depth-sharded model the batch is the data
-  group's, and the labels are cut to the model's slab.
+  group's, and the labels are cut to the model's slab: the blocked GT
+  routes share their voxelization over the space group when B divides by
+  the space count (train/gt.py::labels_slab, which counts each route
+  taken in gt.route_counts).
   """
   loss_fn = loss_fn_for_task(task_type)
   resolution = tuple(resolution)
@@ -112,35 +119,41 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   phase_s = 4 if model.packed_decoder else 2
   depth_shard = model.depth_shard
 
+  def phased_labels(*scenes):
+    packed, v2x = gt.voxelize_batch_packed_fgbg(*scenes, **vox_kwargs)
+    return phased_gt(packed, phase_s), v2x
+
   def ground_truth(batch: Batch):
-    """(grid or None, phase-major labels or None, v2x)."""
+    """(labels, whether they are phase-major, v2x), the labels cut to the
+    model's depth slab by one call (train/gt.py::labels_slab)."""
+    phased = False
     if "grid" in batch:
       grid = batch["grid"]
       expected = (batch["image"].shape[0],) + resolution
       if tuple(grid.shape) != expected:
         raise ValueError(f"grid {tuple(grid.shape)} does not match batch "
                          f"{expected[0]} at resolution {resolution}")
-      return grid, None, batch["v2x"]
-    args = (batch["triangles"], batch["tri_mesh_slot"], batch["tri_valid"],
-            batch["mesh_labels"], batch["grid_offset"])
-    if gt_algorithm == "parity":
-      grid, v2x = parity_voxelize_batch(
-          *args, num_mesh_slots=batch["mesh_labels"].shape[1],
-          resolution=vox_kwargs["resolution"])
-      return grid, None, v2x
-    if (phase_loss and task_type == "FG_BG"
-        and gt.packed_fgbg_eligible(**vox_kwargs)):
-      packed, v2x = gt.voxelize_batch_packed_fgbg(*args, **vox_kwargs)
-      return None, phased_gt(packed, phase_s), v2x
-    grid, v2x = gt.voxelize_batch(*args, **vox_kwargs)
-    return grid, None, v2x
+      produce, args, shareable = lambda: (grid, batch["v2x"]), (), False
+    else:
+      args = (batch["triangles"], batch["tri_mesh_slot"],
+              batch["tri_valid"], batch["mesh_labels"], batch["grid_offset"])
+      if gt_algorithm == "parity":
+        produce = functools.partial(
+            parity_voxelize_batch,
+            num_mesh_slots=batch["mesh_labels"].shape[1],
+            resolution=vox_kwargs["resolution"])
+        shareable = False
+      elif (phase_loss and task_type == "FG_BG"
+            and gt.packed_fgbg_eligible(**vox_kwargs)):
+        produce, shareable, phased = phased_labels, True, True
+      else:
+        produce = functools.partial(gt.voxelize_batch, **vox_kwargs)
+        shareable = gt.blocked_grid_eligible(**vox_kwargs)
+    labels, v2x = gt.labels_slab(produce, args, depth_shard, shareable)
+    return labels, phased, v2x
 
   def step(state: TrainState, batch: Batch):
-    grid, phased, v2x = ground_truth(batch)
-    if grid is not None:
-      grid = gt.depth_slab(grid, depth_shard)
-    if phased is not None:
-      phased = gt.depth_slab(phased, depth_shard)
+    labels, phased, v2x = ground_truth(batch)
     batch_size = batch["image"].shape[0]
     mesh.assert_equal_across_ranks(batch_size, "the batch size")
     v2s = compute_v2s(batch["camera"], v2x)
@@ -156,11 +169,11 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
       if factor != phase_s ** 3:
         raise ValueError(f"phase-major logits of factor {factor}, expected "
                          f"{phase_s ** 3}")
-      if phased is None:
-        phased = phase_permute(grid.to(torch.uint8), phase_s)
-      loss = loss_fn(phased, logits.reshape(b, dq, hq, -1, nc))
+      if not phased:
+        labels = phase_permute(labels.to(torch.uint8), phase_s)
+      loss = loss_fn(labels, logits.reshape(b, dq, hq, -1, nc))
     else:
-      loss = loss_fn(grid, logits)
+      loss = loss_fn(labels, logits)
     loss.backward()
     mesh.all_reduce_gradients(model.parameters())
     optimizer.step()

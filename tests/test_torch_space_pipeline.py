@@ -16,9 +16,10 @@ the whole epoch); global_step advances by the batch times the data count
 the checkpoints, which JAX's `decode_state` reads and the CLI resumes
 from; the recurrent eval, which runs the unsharded eval twin on each
 rank's shard of the eval set, writes the CSV of one process's eval of
-the same checkpoint. On data 2 × space 2 (4 ranks), each data group's
-two space ranks load the JAX loader's batches over its shard of the
-epoch.
+the same checkpoint; each step's labels, on a batch of 1, take the
+replicated route (the shared one: tests/test_torch_space_step_shared.py).
+On data 2 × space 2 (4 ranks), each data group's two space ranks load the
+JAX loader's batches over its shard of the epoch.
 """
 
 import json
@@ -57,16 +58,18 @@ def train_jobs(rank, world, config_dict, max_steps):
   worker's)."""
   from corenet_tpu_torch import config as cfg
   from corenet_tpu_torch.parallel import mesh
-  from corenet_tpu_torch.train import checkpoint, pipeline
+  from corenet_tpu_torch.train import checkpoint, gt, pipeline
   record = {"batches": [], "saves": []}
   _recording(pipeline.TrainPipeline, checkpoint.CheckpointManager, record)
   full = cfg.config_from_dict(cfg.TrainPipeline, config_dict)
   p = pipeline.TrainPipeline(full.train, full.output_path, device="cpu",
                              mesh=mesh.create_mesh(space=2),
                              compute_dtype="float32")
+  before = dict(gt.route_counts)
   p.run(max_steps=max_steps)
   return dict(_summary(p, record), depth_shard=p.model.depth_shard,
-              shard_stage=p.model.decoder.shard_stage)
+              shard_stage=p.model.decoder.shard_stage,
+              routes={k: v - before[k] for k, v in gt.route_counts.items()})
 
 
 def cli_jobs(rank, world, config_path, max_steps):
@@ -167,6 +170,10 @@ def test_space_ranks_load_their_data_groups_batches(trained):
     assert resumed[rank]["batches"] == epoch0[2:]
   # global_step counts the batch of 1 times the data count 1.
   assert [r["global_step"] for r in first] == [2, 2]
+  # A batch of 1 does not share over 2 space ranks (and irm 2 takes the
+  # general rasterizer): the replicated route each step.
+  assert [r["routes"] for r in first] == [
+      {"space_shared": 0, "replicated": 2}] * 2
   assert [r["global_step"] for r in resumed] == [4, 4]
 
 

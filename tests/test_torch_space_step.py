@@ -23,9 +23,11 @@ within 1e-5 and the gradients by the same levels; every rank's loss,
 averaged gradients and parameters after Adam bit-equal; global_step
 advanced by the global batch. The collectives per step are counted: the
 data-parallel ones, plus two halo all-reduces (forward and backward) per
-sharded convolution and two for each IoU's sums over the space group. A group laid out with space
-1 steps bit for bit as no group does. The packed decoder and bf16 are in
-tests/test_torch_space_step_{packed,bf16}.py.
+sharded convolution, two for each IoU's sums over the space group, and
+the FG_BG labels' all-to-all (shared over the space group:
+tests/test_torch_space_gt.py, _step_shared.py). A group laid out with
+space 1 steps bit for bit as no group does. The packed decoder and bf16
+are in tests/test_torch_space_step_{packed,bf16}.py.
 """
 
 import hashlib
@@ -50,6 +52,12 @@ def _digest(tensors):
   return h.hexdigest()
 
 
+def _delta(counts, before):
+  """The counts that moved since `before`."""
+  return {k: v - before.get(k, 0) for k, v in counts.items()
+          if v != before.get(k, 0)}
+
+
 def _model(case, depth_shard=None):
   from corenet_tpu_torch.models.corenet import (
       CoreNet, CoreNetConfig, DecoderConfig)
@@ -64,6 +72,7 @@ def step_case(case, scenes, depth_shard=None, full=True):
   and parameters after Adam, and (`full`) its gradients and new
   statistics."""
   from corenet_tpu_torch.parallel import mesh
+  from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
   out = {"losses": []}
@@ -75,6 +84,7 @@ def step_case(case, scenes, depth_shard=None, full=True):
                            case["res"],
                            voxelization_kwargs=case["vox_kwargs"])
     count = mesh.collective_count
+    routes = dict(gt.route_counts)
     state, metrics = step(state, {k: torch.from_numpy(v[scenes])
                                   for k, v in batch.items()})
     out["losses"].append(float(metrics["loss"]))
@@ -85,8 +95,10 @@ def step_case(case, scenes, depth_shard=None, full=True):
       continue
     out.update(global_step=state.global_step,
                collectives=mesh.collective_count - count,
+               routes=_delta(gt.route_counts, routes),
                grads_digest=_digest(p.grad for p in model.parameters()),
                params_digest=_digest(model.parameters()),
+               buffers_digest=_digest(model.buffers()),
                shard_stage=model.decoder.shard_stage)
     if full:
       out["grads"] = grads
@@ -315,10 +327,17 @@ def test_space_step_matches_the_one_process_step(inputs, space2, one_process,
   assert_matches_one_process(want, got)
   # Each mean over the world and each IoU's sums over the space group: an
   # all-reduce forward and one backward. FG_BG has one IoU; SEMANTIC an
-  # IoU and a cross-entropy.
+  # IoU and a cross-entropy. FG_BG's labels, voxelized in the step at a
+  # batch that divides by the space count, are shared over the space
+  # group: one all-to-all; SEMANTIC's come with the batch, whole on every
+  # rank.
   losses = 4 if name == "fgbg" else 6
+  labels = 1 if name == "fgbg" else 0
   assert got["collectives"] == (data_parallel_collectives(got) + losses
-                                + halo_collectives(4)), got["collectives"]
+                                + halo_collectives(4) + labels), (
+                                    got["collectives"])
+  assert got["routes"] == (
+      {"space_shared": 1} if labels else {"replicated": 1}), got["routes"]
 
 
 def test_data2_space2_step_matches_jax_and_one_process(
