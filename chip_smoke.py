@@ -53,8 +53,9 @@ Phases; the run fails at the first that fails:
               step at 32³ on the card against the same step on the CPU.
   6. train-gt h7 training as the JAX package trains by default: ground
               truth voxelized in the step from the batch's triangles
-              (blocked rasterizer: phase A, the CUDA block_scatter_or,
-              the packed fill, the OR over labeled mesh slots) and phased
+              (the blocked rasterizer, one CUDA kernel from triangles to
+              OR-ed words (blocked_raster_or), the packed fill, the OR
+              over labeled mesh slots) and phased
               by the CUDA phased_gt (s = 2) for the phase loss on
               phase-major logits; h7's voxelization settings (irm 8, no
               conservative rasterization, adaptive fill, a 24-pixel
@@ -62,15 +63,24 @@ Phases; the run fails at the first that fails:
               moved by a seeded offset of at most 0.05, subdivided to
               12,288 triangles; slot 1 a seeded closed sphere (~1.5k
               triangles), label 0 in the last scene; padded to 16,384.
-              Checks 1 + 1 + 4 + 4 + 1 launches per step (block_scatter_or,
-              phased_gt, skip_gather, its backward, fgbg_sums), the step's
-              phased GT against the plain scatter + fill + unpack +
+              Checks 1 + 1 + 4 + 4 + 1 launches per step
+              (blocked_raster_or, phased_gt, skip_gather, its backward,
+              fgbg_sums), no launch of the standalone block_scatter_or and
+              no call of phase A's tensor code, the step's phased GT
+              against the plain phase A + scatter + fill + unpack +
               permute on the card and the card's packed GT against the
               CPU's (two scenes, bit for bit), finite loss and gradients,
               a falling loss, the kernel step against the plain step, and
               the phase loss against the plain loss on the same grid.
-              Times K3 and K4 at the step's shapes, the GT's parts, 10
-              steps, and profiles one more.
+              Holds blocked_raster_or to its plain version (phase A + the
+              scatter's plain version) bit for bit on the step's 4 scenes,
+              on a space rank's 2 and on an edge batch (irm 1,
+              conservative, zero-area, clipped and invalid triangles),
+              and the standalone block_scatter_or to its own; times them,
+              K4 at s = 2 and 4 on 2 and 4 scenes, the GT's parts beside
+              the plain composition's (phase A + block_scatter_or), 10
+              steps, the peak memory by part of a step, and profiles one
+              more.
   7. eval     h7's full_eval through EvalPipeline.run_eval: a seeded
               dataset written to a temporary directory (a manifest of two
               classes, mesh NPZs of the cube shell and seeded spheres, 10
@@ -80,7 +90,8 @@ Phases; the run fails at the first that fails:
               worker processes, prefetch 2), the seeded h7 model through
               super_resolution_from_model: 3 batches, the last with 2
               valid scenes. Checks that the confusion matrix sums to
-              10 · 128³, that each batch launched block_scatter_or once and
+              10 · 128³, that each batch launched blocked_raster_or once
+              (phase A's tensor code never called) and
               skip_gather 4 times, the first batch's GT against the CPU's
               (two scenes, bit for bit), the confusion matrix with the
               kernels against the one with the plain versions, IoU exactly
@@ -313,6 +324,12 @@ EVAL_CLASSES = (("02958343", "cube"), ("03001627", "sphere"))
 GT_TRIANGLES = 16384  # padded triangles per scene
 GT_CPU_SCENES = [0, BATCH - 1]  # voxelized on the CPU too
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
+# float32 operations of one sample in csrc/blocked_raster.cu's loop (a
+# covered one): the sample's coordinate 2, three edge functions 12, the
+# double area 2, the coverage test 7 (or the conservative one's), the
+# area's test 1, the division 1, the depth 8, its range 2, its floor 1.
+RASTER_OPS_PER_SAMPLE = 36
 # The decoder's skips: stage → (native resolution / layer resolution,
 # padded map H2 = W2 at 256² images, channels).
 SKIPS = {2: (16, 10, 96), 3: (8, 18, 48), 4: (4, 34, 24), 5: (2, 66, 12)}
@@ -700,6 +717,8 @@ PLAIN = {
     "fgbg_loss": (("fgbg_sums_forward", "fgbg_sums_reference"),),
     "block_scatter": (("block_scatter_or_forward",
                        "block_scatter_or_reference"),),
+    "blocked_raster": (("blocked_raster_forward",
+                        "blocked_raster_reference"),),
     "phased_gt": (("phased_gt_forward", "phased_gt_reference"),),
 }
 
@@ -1064,66 +1083,159 @@ GT_KEYS = ("triangles", "tri_mesh_slot", "tri_valid", "mesh_labels",
            "grid_offset")
 
 
-def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds, s=2,
+def raster_row(torch, raster, tris, irm, conservative, where, m=None,
+               timed=True):
+  """The fused rasterizer (ops/blocked_raster.py) on the card against its
+  plain version (phase A + the scatter's plain version) on the same
+  inputs, bit for bit, and (`timed`) both timed. `tris` holds the
+  triangle keys of a batch and "v2v"; m defaults to h7's grid. Returns
+  (the row, the kernel's words)."""
+  m = m or OUTPUT_RES[0]
+  meshes = tris["v2v"].shape[1]
+  args = (tris["triangles"], tris["tri_mesh_slot"], tris["v2v"],
+          tris["tri_valid"])
+  kw = dict(meshes=meshes, m=m, irm=irm, conservative=conservative)
+  words = raster.blocked_raster_or(*args, **kw)
+  plain = raster.blocked_raster_reference(*args, **kw)
+  torch.cuda.synchronize()
+  if not torch.equal(words, plain):
+    differ = int((words != plain).sum())
+    raise AssertionError(f"blocked_raster_or differs from its plain version "
+                         f"{where}: {differ} of {words.numel()} words")
+  b, t = tris["tri_valid"].shape
+  valid = int(tris["tri_valid"].sum())
+  samples = valid * (4 * irm) ** 2
+  # Inputs read once (triangles, slots, validity, the scene's matrix) and
+  # the grid written once; the operations every sample of a valid triangle
+  # takes in the kernel's loop (RASTER_OPS_PER_SAMPLE).
+  nbytes = b * t * (36 + 4 + 1) + b * 64 + words.numel() * 4
+  ops_ms = samples * RASTER_OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
+  bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+  row = {"triangles": [b, t], "valid_triangles": valid, "irm": irm,
+         "conservative": conservative, "out": list(words.shape),
+         "nonzero_words": int((words != 0).sum()), "samples": samples,
+         "bytes": nbytes, "operations": samples * RASTER_OPS_PER_SAMPLE,
+         "max_abs_err": 0.0, "bound_ms": max(ops_ms, bytes_ms),
+         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+         "library_ms": None}
+  if timed:
+    row["ms"] = device_ms(torch, lambda: raster.blocked_raster_or(*args,
+                                                                  **kw))
+    row["plain_ms"] = device_ms(
+        torch, lambda: raster.blocked_raster_reference(*args, **kw), reps=2,
+        trials=3)
+    log(f"blocked_raster_or {where}: kernel {row['ms']:.4f} ms, plain "
+        f"(phase A + the scatter's plain version) {row['plain_ms']:.4f} ms, "
+        f"library none, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+        f"{samples} samples of {valid} valid triangles × "
+        f"{RASTER_OPS_PER_SAMPLE} float32 operations, {nbytes} B); "
+        f"{row['nonzero_words']} nonzero words, equal to the plain version")
+  else:
+    log(f"blocked_raster_or {where}: {valid} valid triangles, "
+        f"{row['nonzero_words']} nonzero words, equal to the plain version")
+  return row, words
+
+
+def edge_raster_batch(torch, dev, seed, m=OUTPUT_RES[0], irm=1):
+  """Two scenes at irm 1 (the smallest window, 4 pixels) that reach the
+  rasterizer's corners: the cube shell subdivided for irm 1, triangles
+  with three equal vertices and collinear ones (zero area), triangles
+  clipped at or beyond the grid's faces, invalid rows that hold
+  triangles, and slots outside [0, 2) (skipped, as the scatter skips
+  them). Returns the raster_row inputs on `dev`."""
+  import numpy as np
+  from corenet_tpu_torch.data.batching import subdivide_triangles
+  from corenet_tpu_torch.train import gt
+  rng = np.random.default_rng(seed)
+  max_edge = 2.0 / irm / m  # a (4 + 2.5 irm)-pixel window's subdivision
+  scenes = []
+  for i in range(2):
+    cube = subdivide_triangles(
+        cube_shell() + rng.uniform(-0.05, 0.05, 3).astype(np.float32),
+        max_edge)
+    p = rng.uniform(0, 1, (64, 1, 3)).astype(np.float32)
+    step = rng.uniform(-1, 1, (64, 1, 3)).astype(np.float32) * max_edge
+    faces = rng.uniform(-0.02, 1.02, (512, 1, 3)).astype(np.float32)
+    faces[:256, 0, i % 3] = rng.choice(
+        np.float32([-0.01, 0.0, 0.999, 1.0, 1.01]), 256)
+    faces = faces + (rng.uniform(-1, 1, (512, 3, 3)) * max_edge * 0.6
+                     ).astype(np.float32)
+    scenes.append(np.concatenate([
+        cube, np.repeat(p, 3, axis=1),
+        np.concatenate([p, p + step, p + 2 * step], axis=1), faces]))
+  t = max(len(x) for x in scenes) + 64
+  triangles = rng.uniform(0, 1, (2, t, 3, 3)).astype(np.float32)
+  slot = rng.integers(0, 2, (2, t)).astype(np.int32)
+  valid = np.zeros((2, t), bool)
+  for i, tris in enumerate(scenes):
+    triangles[i, :len(tris)] = tris
+    valid[i, :len(tris)] = rng.random(len(tris)) > 0.05
+    slot[i, :4] = (2, -1, 1 << 20, -(1 << 20))
+  offsets = torch.from_numpy(rng.uniform(0, 1, (2, 3)).astype(np.float32))
+  return {"triangles": torch.from_numpy(triangles).to(dev),
+          "tri_mesh_slot": torch.from_numpy(slot).to(dev),
+          "tri_valid": torch.from_numpy(valid).to(dev),
+          "v2v": gt._view2voxel_uniform(offsets, float(m), 2).to(dev)}
+
+
+def gt_kernel_rows(torch, raster, phased, batch, packed_or, rounds, s=2,
                    where="at the step's shapes"):
-  """K3 and K4 (at phase factor s) at the step's shapes against their
-  plain versions, and the device time of the GT's parts: phase A, the
-  scatter, the fill (its static loop with the rounds the adaptive fill
-  ran), the slot OR with phased_gt."""
+  """The fused rasterizer and K4 (at phase factor s) at the step's shapes
+  against their plain versions, and the device time of the GT's parts:
+  the fused rasterizer, the fill (its static loop with the rounds the
+  adaptive fill ran), the slot OR with phased_gt; beside them the plain
+  composition the rasterizer replaced, phase A and the standalone CUDA
+  block_scatter_or (held against its plain version too)."""
+  from corenet_tpu_torch.ops import block_scatter as scatter
   from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.voxel import packed as packed_mod
   from corenet_tpu_torch.voxel import raster_fast
   m = OUTPUT_RES[0]
   nw = m // 32
   meshes = batch["mesh_labels"].shape[1]
-  v2v = gt._view2voxel_uniform(batch["grid_offset"], float(m), meshes)
+  tris = {k: batch[k] for k in ("triangles", "tri_mesh_slot", "tri_valid")}
+  tris["v2v"] = gt._view2voxel_uniform(batch["grid_offset"], float(m),
+                                       meshes)
+  irm = H7_VOX["image_resolution_multiplier"]
+  conservative = H7_VOX["conservative_rasterization"]
+  k3, grids = raster_row(torch, raster, tris, irm, conservative, where)
 
   def phase_a():
     return raster_fast._phase_a(
-        batch["triangles"], batch["tri_mesh_slot"], v2v, batch["tri_valid"],
-        m=m, irm=H7_VOX["image_resolution_multiplier"],
-        conservative=H7_VOX["conservative_rasterization"])
+        batch["triangles"], batch["tri_mesh_slot"], tris["v2v"],
+        batch["tri_valid"], m=m, irm=irm, conservative=conservative)
 
   origins, pw = phase_a()
   kw = dict(meshes=meshes, h=m, w=m, nw=nw)
-  grids = scatter.block_scatter_or(origins, pw, **kw)
+  scattered = scatter.block_scatter_or(origins, pw, **kw)
   plain = scatter.block_scatter_or_reference(origins, pw, **kw)
   torch.cuda.synchronize()
-  if not torch.equal(grids, plain):
-    raise AssertionError("block_scatter_or differs from its plain version "
-                         "at the step's shapes")
+  if not (torch.equal(scattered, plain) and torch.equal(scattered, grids)):
+    raise AssertionError(f"block_scatter_or differs from its plain version "
+                         f"or from blocked_raster_or {where}")
   valid = int((origins >= 0).sum())
-  atomics = int((pw != 0).sum())
   block_bytes = pw[0, 0].numel() * 4
-  k3_bytes = valid * (block_bytes + 4) + grids.numel() * 4
-  k3 = {"origins": list(origins.shape), "pw": list(pw.shape),
-        "out": list(grids.shape), "valid_triangles": valid,
-        "nonzero_words": atomics, "bytes": k3_bytes, "max_abs_err": 0.0,
-        "ms": device_ms(torch, lambda: scatter.block_scatter_or(
-            origins, pw, **kw)),
-        "plain_ms": device_ms(torch, lambda: scatter.
-                              block_scatter_or_reference(origins, pw, **kw),
-                              reps=2, trials=3),
-        "library_ms": None, "bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3}
-  phases = phased.phased_gt(packed_or, s)
-  plain = phased.phased_gt_reference(packed_or, s)
-  torch.cuda.synchronize()
-  if not torch.equal(phases, plain):
-    raise AssertionError("phased_gt differs from its plain version at the "
-                         "step's shapes")
-  k4_bytes = packed_or.numel() * 4 + phases.numel()
-  k4 = {"s": s, "packed": list(packed_or.shape), "out": list(phases.shape),
-        "bytes": k4_bytes, "max_abs_err": 0.0,
-        "ms": device_ms(torch, lambda: phased.phased_gt(packed_or, s)),
-        "plain_ms": device_ms(
-            torch, lambda: phased.phased_gt_reference(packed_or, s)),
-        "library_ms": None, "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3}
-  for name, row in (("block_scatter_or", k3), ("phased_gt", k4)):
-    log(f"{name} {where}: kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, library none, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bytes']} B)" +
-        (f"; {valid} valid triangles, {atomics} nonzero words (atomics)"
-         if name == "block_scatter_or" else ""))
+  scatter_bytes = valid * (block_bytes + 4) + scattered.numel() * 4
+  scatter_row = {
+      "origins": list(origins.shape), "pw": list(pw.shape),
+      "out": list(scattered.shape), "valid_triangles": valid,
+      "nonzero_words": int((pw != 0).sum()), "bytes": scatter_bytes,
+      "max_abs_err": 0.0,
+      "ms": device_ms(torch, lambda: scatter.block_scatter_or(origins, pw,
+                                                              **kw)),
+      "plain_ms": device_ms(torch, lambda: scatter.
+                            block_scatter_or_reference(origins, pw, **kw),
+                            reps=2, trials=3),
+      "library_ms": None,
+      "bound_ms": scatter_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+  del origins, pw, scattered, plain
+  log(f"block_scatter_or (standalone, off the main path) {where}: kernel "
+      f"{scatter_row['ms']:.4f} ms, plain {scatter_row['plain_ms']:.4f} ms, "
+      f"library none, bound {scatter_row['bound_ms']:.4f} ms "
+      f"({scatter_bytes} B); {scatter_row['valid_triangles']} valid "
+      f"triangles, {scatter_row['nonzero_words']} nonzero words (atomics); "
+      "its grid equals blocked_raster_or's")
+  k4 = phased_row(torch, phased, packed_or, s, where)
 
   words = grids.reshape(grids.shape[:-1] + (m, nw))
   labels = batch["mesh_labels"]
@@ -1132,30 +1244,66 @@ def gt_kernel_rows(torch, scatter, phased, batch, packed_or, rounds, s=2,
     masked = torch.where((labels > 0)[:, :, None, None, None], words, 0)
     return phased.phased_gt((masked[:, 0] | masked[:, 1]).contiguous(), s)
 
-  split = {"phase_a_ms": device_ms(torch, phase_a, reps=3, trials=5),
-           "scatter_ms": k3["ms"],
+  split = {"raster_ms": k3["ms"],
            "fill_ms": device_ms(torch, lambda: packed_mod.fill_inside_packed(
                words, fill_rounds=rounds), reps=3, trials=5),
            "fill_rounds": rounds,
            "slot_or_phased_gt_ms": device_ms(torch, slot_or_phased)}
-  split["sum_ms"] = (split["phase_a_ms"] + split["scatter_ms"] +
-                     split["fill_ms"] + split["slot_or_phased_gt_ms"])
+  split["sum_ms"] = (split["raster_ms"] + split["fill_ms"] +
+                     split["slot_or_phased_gt_ms"])
+  composition = {"phase_a_ms": device_ms(torch, phase_a, reps=3, trials=5),
+                 "scatter_ms": scatter_row["ms"]}
+  composition["sum_ms"] = (composition["phase_a_ms"]
+                           + composition["scatter_ms"] + split["fill_ms"]
+                           + split["slot_or_phased_gt_ms"])
+  split["plain_composition"] = composition
   log(f"GT device time {where} (CUDA graphs): " + ", ".join(
       f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-      for k, v in split.items()))
+      for k, v in split.items() if k != "plain_composition"))
+  log(f"GT device time {where}, the plain composition the rasterizer "
+      f"replaced: phase A {composition['phase_a_ms']:.4f} + block_scatter_or "
+      f"{composition['scatter_ms']:.4f} ms in place of "
+      f"{split['raster_ms']:.4f}; the GT {composition['sum_ms']:.4f} ms in "
+      f"place of {split['sum_ms']:.4f}")
+  k3["scatter"] = scatter_row
   return k3, k4, split
+
+
+def phased_row(torch, phased, packed_or, s, where):
+  """K4 at phase factor s on `packed_or` against its plain version, bit
+  for bit, and timed."""
+  phases = phased.phased_gt(packed_or, s)
+  plain = phased.phased_gt_reference(packed_or, s)
+  torch.cuda.synchronize()
+  if not torch.equal(phases, plain):
+    raise AssertionError(f"phased_gt at s = {s} differs from its plain "
+                         f"version {where}")
+  nbytes = packed_or.numel() * 4 + phases.numel()
+  row = {"s": s, "packed": list(packed_or.shape), "out": list(phases.shape),
+         "bytes": nbytes, "max_abs_err": 0.0,
+         "ms": device_ms(torch, lambda: phased.phased_gt(packed_or, s)),
+         "plain_ms": device_ms(
+             torch, lambda: phased.phased_gt_reference(packed_or, s)),
+         "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes"}
+  log(f"phased_gt (s = {s}) {where}: kernel {row['ms']:.4f} ms, plain "
+      f"{row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} "
+      f"ms ({nbytes} B), equal to the plain version")
+  return row
 
 
 def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
   """Phase 6: h7 training on ground truth voxelized in the step, with the
   phase loss. Returns the launches of the first step (skip_gather, its
-  backward, fgbg_sums, block_scatter_or, phased_gt), the K3 and K4 rows,
-  the GT split and the median step time in ms."""
+  backward, fgbg_sums, blocked_raster_or, phased_gt), the rasterizer's and
+  K4's rows, the GT split and the median step time in ms."""
+  from corenet_tpu_torch.ops import block_scatter as scatter
   from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
   from corenet_tpu_torch.voxel import packed as packed_mod
-  op, fgbg, scatter, phased = mods
+  from corenet_tpu_torch.voxel import raster_fast
+  op, fgbg, raster, phased = mods
   host, counts = triangle_batch(torch, image, camera, SEED + 41)
   batch = {k: v.to(dev) for k, v in host.items()}
   log(f"h7 train-gt: (cube, sphere) triangles per scene {counts}, padded "
@@ -1176,21 +1324,27 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
 
   phased.phased_gt_forward = catch
   torch.cuda.synchronize()
-  zero_counts(*mods)
+  zero_counts(*mods, scatter)
   rounds0 = packed_mod.round_count
+  phase_a_calls = []
   start = time.perf_counter()
   try:
-    state, metrics = step(state, batch)
-    torch.cuda.synchronize()
+    with caught_calls(raster_fast, "_phase_a", phase_a_calls):
+      state, metrics = step(state, batch)
+      torch.cuda.synchronize()
   finally:
     phased.phased_gt_forward = kernel_phased
   first_s = time.perf_counter() - start
   launches = launch_counts(*mods)
   rounds = packed_mod.round_count - rounds0
-  if launches != (4, 4, 1, 1, 1):
+  if (launches != (4, 4, 1, 1, 1) or scatter.launch_count
+      or phase_a_calls):
     raise AssertionError(f"h7 train-gt step launched (skip_gather, its "
-                         f"backward, fgbg_sums, block_scatter_or, phased_gt) "
-                         f"{launches} times, expected (4, 4, 1, 1, 1)")
+                         f"backward, fgbg_sums, blocked_raster_or, "
+                         f"phased_gt) {launches} times, expected (4, 4, 1, "
+                         f"1, 1), the standalone block_scatter_or "
+                         f"{scatter.launch_count} times and called phase A "
+                         f"{len(phase_a_calls)} times, expected 0 and 0")
   first_loss = float(metrics["loss"])
   bad = [n for n, p in state.model.named_parameters()
          if p.grad is None or not bool(torch.isfinite(p.grad).all())]
@@ -1198,27 +1352,28 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
     raise AssertionError(f"h7 train-gt: loss {first_loss}, non-finite or "
                          f"missing gradients {bad[:5]}")
   log(f"h7 train-gt: first step {first_s:.3f} s, loss {first_loss:.6f}, "
-      f"launches (skip_gather, backward, fgbg_sums, block_scatter_or, "
-      f"phased_gt) {launches}, {rounds} fill rounds, loss and all "
+      f"launches (skip_gather, backward, fgbg_sums, blocked_raster_or, "
+      f"phased_gt) {launches}, the standalone block_scatter_or 0 and phase "
+      f"A's tensor code 0 times, {rounds} fill rounds, loss and all "
       "gradients finite")
 
   # The step's GT against the plain path on the card and the CPU's.
   args = [batch[k] for k in GT_KEYS]
   packed_or, v2x = gt.voxelize_batch_packed_fgbg(*args, resolution=OUTPUT_RES,
                                                  **H7_VOX)
-  with plain_versions(scatter, phased):
-    counted = launch_counts(scatter, phased)
+  with plain_versions(raster, phased):
+    counted = launch_counts(raster, scatter, phased)
     plain_or, _ = gt.voxelize_batch_packed_fgbg(*args,
                                                 resolution=OUTPUT_RES,
                                                 **H7_VOX)
     plain_phased = phased.phased_gt(plain_or, 2)
-    if launch_counts(scatter, phased) != counted:
+    if launch_counts(raster, scatter, phased) != counted:
       raise AssertionError("the plain GT path launched a kernel")
   torch.cuda.synchronize()
   if not (torch.equal(caught[0], plain_phased)
           and torch.equal(packed_or, plain_or)):
     raise AssertionError("the step's phased GT differs from the plain "
-                         "scatter + fill + unpack + permute")
+                         "phase A + scatter + fill + unpack + permute")
   share = float(plain_phased.float().mean())
   start = time.perf_counter()
   cpu_or, _ = gt.voxelize_batch_packed_fgbg(
@@ -1230,9 +1385,9 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
     raise AssertionError(f"{differ} packed words of scenes {GT_CPU_SCENES} "
                          "differ between the card and the CPU")
   log(f"h7 train-gt: the step's phased GT {list(caught[0].shape)} uint8 "
-      f"(foreground {share:.4f}) equals the plain scatter + fill + unpack + "
-      f"permute on the card; the card's packed GT of scenes {GT_CPU_SCENES} "
-      f"equals the CPU's bit for bit ({cpu_s:.1f} s on the CPU)")
+      f"(foreground {share:.4f}) equals the plain phase A + scatter + fill + "
+      f"unpack + permute on the card; the card's packed GT of scenes "
+      f"{GT_CPU_SCENES} equals the CPU's bit for bit ({cpu_s:.1f} s on the CPU)")
 
   compare_with_plain_step(torch, mods, state, step, batch, "h7 train-gt")
   phase_loss_rel = compare_with_plain_loss(torch, CoreNet, config, state,
@@ -1240,8 +1395,27 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
 
   state = loss_steps(state, step, batch, first_loss, "h7 train-gt")
 
-  k3, k4, split = gt_kernel_rows(torch, scatter, phased, batch, packed_or,
+  k3, k4, split = gt_kernel_rows(torch, raster, phased, batch, packed_or,
                                  rounds)
+  # The rasterizer on a space rank's share (2 of the 4 scenes) and on the
+  # edge batch; K4 at both phase factors on 2 and on 4 scenes.
+  share = {k: batch[k][:BATCH // 2] for k in GT_KEYS}
+  share_tris = {k: share[k] for k in ("triangles", "tri_mesh_slot",
+                                      "tri_valid")}
+  share_tris["v2v"] = gt._view2voxel_uniform(share["grid_offset"],
+                                             float(OUTPUT_RES[0]), 2)
+  k3["share"], _ = raster_row(
+      torch, raster, share_tris, H7_VOX["image_resolution_multiplier"],
+      H7_VOX["conservative_rasterization"],
+      f"on a space rank's {BATCH // 2} scenes")
+  k3["edge"], _ = raster_row(
+      torch, raster, edge_raster_batch(torch, dev, SEED + 42), 1, True,
+      "on the edge batch (irm 1, conservative; zero-area, clipped, invalid "
+      "and out-of-range-slot triangles)", timed=False)
+  k4["by_scenes"] = [
+      phased_row(torch, phased, packed_or[:scenes], s,
+                 f"on {scenes} scenes")
+      for scenes in (BATCH // 2, BATCH) for s in (2, 4)]
   gt_wall = []
   for _ in range(5):
     torch.cuda.synchronize()
@@ -1255,6 +1429,12 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
 
   _, timed = timed_training(torch, "h7 train-gt", step, state, batch)
   ms = timed["median_ms"]
+  _, peaks = part_peaks(torch, state.model, state.optimizer, dev,
+                        lambda: step(state, batch))
+  split["part_peak_gib"] = {k: v / 2**30 for k, v in peaks.items()}
+  log("h7 train-gt: peak memory by part of one step (GiB allocated, "
+      "weights, gradients and Adam's moments included): " + ", ".join(
+          f"{k} {v:.3f}" for k, v in split["part_peak_gib"].items()))
   gt_ms = statistics.median(gt_wall)
   log(f"h7 train-gt: GT (voxelize + OR + phased_gt) {gt_ms:.3f} ms on the "
       f"host clock (median of 5), {split['sum_ms']:.3f} ms of device time "
@@ -1487,15 +1667,16 @@ class EvalProbe:
 
 def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
   """Phase 7: h7's full_eval through EvalPipeline.run_eval on a seeded
-  dataset. Returns the launches per run (skip_gather, block_scatter_or)
-  and the timings."""
+  dataset. Returns the launches per run (skip_gather, its backward,
+  fgbg_sums, blocked_raster_or, phased_gt) and the timings."""
   import numpy as np
   from corenet_tpu_torch.config import config as cfg
   from corenet_tpu_torch.eval import pipeline as pipeline_mod
   from corenet_tpu_torch.eval import results as results_mod
   from corenet_tpu_torch.eval.super_resolution import (
       super_resolution_from_model)
-  op, fgbg, scatter, phased = mods
+  from corenet_tpu_torch.voxel import raster_fast
+  op, fgbg, raster, phased = mods
   voxels = OUTPUT_RES[0] * OUTPUT_RES[1] * OUTPUT_RES[2]
   with tempfile.TemporaryDirectory() as root:
     manifest, meshes_dir = write_eval_dataset(root, SEED + 50)
@@ -1519,13 +1700,16 @@ def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
     probe = EvalProbe(torch, pipeline, results_mod)
     torch.cuda.synchronize()
     zero_counts(*mods)
-    mean_iou, run_s = probe.run()
+    phase_a_calls = []
+    with caught_calls(raster_fast, "_phase_a", phase_a_calls):
+      mean_iou, run_s = probe.run()
     launches = launch_counts(*mods)
-    if launches != (4 * batches, 0, 0, batches, 0):
+    if launches != (4 * batches, 0, 0, batches, 0) or phase_a_calls:
       raise AssertionError(f"h7 eval launched (skip_gather, its backward, "
-                           f"fgbg_sums, block_scatter_or, phased_gt) "
+                           f"fgbg_sums, blocked_raster_or, phased_gt) "
                            f"{launches} times in {batches} batches, expected "
-                           f"4 and 1 per batch")
+                           f"4 and 1 per batch, and called phase A's tensor "
+                           f"code {len(phase_a_calls)} times, expected 0")
     confusion = probe.results.confusion.copy()
     if confusion.sum() != EVAL_SCENES * voxels:
       raise AssertionError(f"the confusion matrix sums to {confusion.sum()}, "
@@ -1546,8 +1730,9 @@ def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
         f"batches of {BATCH} (the last with {EVAL_SCENES % BATCH or BATCH} "
         f"valid), mean IoU {mean_iou:.6f}, confusion matrix "
         f"{confusion.tolist()} sums to {EVAL_SCENES} · {OUTPUT_RES[0]}³; launches "
-        f"(skip_gather, block_scatter_or) ({launches[0]}, {launches[3]}) = "
-        f"(4, 1) per batch; voxel_metrics.csv parses back to the table; "
+        f"(skip_gather, blocked_raster_or) ({launches[0]}, {launches[3]}) = "
+        f"(4, 1) per batch, phase A's tensor code not called; "
+        f"voxel_metrics.csv parses back to the table; "
         f"run {run_s:.3f} s")
 
     # The timed run: the dataset listed EVAL_TIMING_PASSES times, so that
@@ -1613,7 +1798,7 @@ def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
       for plain in (False, True):
         run = EvalProbe(torch, pipeline, results_mod)
         counts = launch_counts(*mods)
-        with plain_versions(op, scatter) if plain else (
+        with plain_versions(op, raster) if plain else (
             contextlib.nullcontext()):
           run.run()
         if (launch_counts(*mods) != counts) == plain:
@@ -1755,7 +1940,7 @@ def train_y1(torch, mods, CoreNet, config, image, camera, dev):
   rounds = fill_mod.round_count - rounds0
   if launches != (4, 4, 1, 0, 0):
     raise AssertionError(f"y1 train step launched (skip_gather, its "
-                         f"backward, fgbg_sums, block_scatter_or, phased_gt) "
+                         f"backward, fgbg_sums, blocked_raster_or, phased_gt) "
                          f"{launches} times, expected (4, 4, 1, 0, 0)")
   first_loss = float(metrics["loss"])
   bad = [n for n, p in state.model.named_parameters()
@@ -2010,7 +2195,7 @@ def serve_cli(torch, mods, CoreNet, config, image, camera, v2x, dev):
       torch.backends.cudnn.deterministic = False
     if launches != (4 * batches, 0, 0, batches, 0):
       raise AssertionError(f"the eval CLI launched (skip_gather, its "
-                           f"backward, fgbg_sums, block_scatter_or, "
+                           f"backward, fgbg_sums, blocked_raster_or, "
                            f"phased_gt) {launches} times in {batches} "
                            f"batches, expected 4 and 1 per batch")
     if cli_iou != ref_iou:
@@ -2048,7 +2233,7 @@ def serve_cli(torch, mods, CoreNet, config, image, camera, v2x, dev):
                        * 1e3}
     log(f"serve-cli eval CLI: mean IoU {cli_iou:.6f} = run_eval's on the "
         f"same weights (deterministic cuDNN); launches (skip_gather, "
-        f"block_scatter_or) ({launches[0]}, {launches[3]}) in {batches} "
+        f"blocked_raster_or) ({launches[0]}, {launches[3]}) in {batches} "
         f"batches = (4, 1) per batch; voxel_metrics.csv parses; {len(tiles)} "
         f"tiles {shapes[0]}; per-class IoU in {os.path.basename(summary)}; "
         f"run {cli_s:.3f} s. Per tile (host clock, median of {len(per_tile)}):"
@@ -2206,7 +2391,7 @@ def bf16_training(torch, mods, label, state, step, batch, expected):
   launches = launch_counts(*mods)
   if launches != expected:
     raise AssertionError(f"{label} step launched (skip_gather, its backward, "
-                         f"fgbg_sums, block_scatter_or, phased_gt) "
+                         f"fgbg_sums, blocked_raster_or, phased_gt) "
                          f"{launches} times, expected {expected}")
   first_loss = float(metrics["loss"])
   bad = [n for n, p in state.model.named_parameters()
@@ -2649,7 +2834,7 @@ def packed_training(torch, mods, CoreNet, config, batch, label, dtype,
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import compute_v2s, make_train_step
   from corenet_tpu_torch.voxel.packed import unpack_grid
-  op, fgbg, scatter, phased = mods
+  op, fgbg, raster, phased = mods
   bf16 = dtype == torch.bfloat16
   packed = execution.get("packed_decoder", False)
   model, _ = seeded_model(torch, CoreNet, config, SEED + 40,
@@ -2675,7 +2860,7 @@ def packed_training(torch, mods, CoreNet, config, batch, label, dtype,
       or packed_order != (1 if packed else 0)):
     raise AssertionError(
         f"{label} step launched (skip_gather, its backward, fgbg_sums, "
-        f"block_scatter_or, phased_gt) {launches} times, phased_gt at s = "
+        f"blocked_raster_or, phased_gt) {launches} times, phased_gt at s = "
         f"{s_factors}, {packed_order} backwards in packed order; expected "
         f"(4, 4, 1, 1, 1), s = {expected_s}, {1 if packed else 0}")
   first_loss = float(metrics["loss"])
@@ -2979,7 +3164,7 @@ def packed_phase(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, image,
                  camera, v2x, offsets, dev):
   """Phase 12: packed (space-to-depth) execution against the fine
   decoder. Returns the figures and the two new kernel rows."""
-  op, fgbg, scatter, phased = mods
+  op, fgbg, raster, phased = mods
   h7 = CoreNetConfig(DecoderConfig(OUTPUT_RES, 2))
   start = time.perf_counter()
   out = {"serve": packed_serving(torch, op, CoreNet, CoreNetConfig,
@@ -3767,7 +3952,7 @@ def dist_worker(argv) -> int:
   process's card
   (cuda:LOCAL_RANK); its result goes to ROOT/TAG_rankRANK.pt."""
   import torch
-  from corenet_tpu_torch.ops import block_scatter as scatter
+  from corenet_tpu_torch.ops import blocked_raster as raster
   from corenet_tpu_torch.ops import fgbg_loss as fgbg
   from corenet_tpu_torch.ops import phased_gt as phased
   from corenet_tpu_torch.ops import skip_gather as op
@@ -3783,7 +3968,7 @@ def dist_worker(argv) -> int:
   try:
     work = {"step": dist_worker_step, "pipeline": dist_worker_pipeline,
             "space": space_worker_step, "nccl": nccl_worker}[task]
-    result = work(torch, (op, fgbg, scatter, phased), rank, dev, root,
+    result = work(torch, (op, fgbg, raster, phased), rank, dev, root,
                   *argv[5:])
     torch.save(result, os.path.join(root, f"{tag}_rank{rank}.pt"))
     mesh.barrier("done")
@@ -3827,7 +4012,7 @@ HOST_GT_STEADY_FROM = 8
 HOST_GT_SCENES = 72  # one epoch of 18 batches covers the 16 steps
 HOST_GT_TIMED = 5    # host_voxelize calls per batch for the median
 # Launches per packed bf16 h7 step (skip_gather, its backward, fgbg_sums,
-# block_scatter_or, phased_gt) and the backwards of them in packed voxel
+# blocked_raster_or, phased_gt) and the backwards of them in packed voxel
 # order: on host GT the step phases the batch's grid (phase_permute), so
 # K3 and K4 do not run.
 HOST_GT_LAUNCHES = {"host": ((4, 4, 1, 0, 0), 1),
@@ -4408,7 +4593,7 @@ def run_space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
   from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
-  op, _, scatter, phased = mods
+  op, _, raster, phased = mods
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   base = torch.cuda.memory_allocated(dev)
@@ -4439,7 +4624,7 @@ def run_space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
       stack.enter_context(caught_results(gt, "labels_slab", labels))
       # Each launch's scenes only: its tensors would move the peaks.
       scenes = lambda args, kwargs: args[0].shape[0]  # noqa: E731
-      stack.enter_context(caught_calls(scatter, "block_scatter_or_forward",
+      stack.enter_context(caught_calls(raster, "blocked_raster_forward",
                                        k3_calls, scenes))
       stack.enter_context(caught_calls(phased, "phased_gt_forward",
                                        k4_calls, scenes))
@@ -4494,7 +4679,7 @@ def space_gt_times(torch, mods, rank, dev, batch):
   from corenet_tpu_torch.parallel import mesh
   from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.voxel import packed as packed_mod
-  _, _, scatter, phased = mods
+  _, _, raster, phased = mods
   per = BATCH // DIST_WORLD
   out = {}
   for turn in range(DIST_WORLD):
@@ -4508,7 +4693,7 @@ def space_gt_times(torch, mods, rank, dev, batch):
           *(part[k] for k in GT_KEYS), resolution=OUTPUT_RES, **H7_VOX)
       rounds = packed_mod.round_count - rounds0
       k3, k4, split = gt_kernel_rows(
-          torch, scatter, phased, part, packed_or, rounds, s=4,
+          torch, raster, phased, part, packed_or, rounds, s=4,
           where=f"on rank {rank}'s {n} scenes ({name})")
       out[name] = {"scenes": n, "k3": k3, "k4": k4, "split": split}
       del packed_or
@@ -5002,7 +5187,7 @@ def main() -> int:
   from corenet_tpu_torch.models import skip
   from corenet_tpu_torch.models.corenet import (
       CoreNet, CoreNetConfig, DecoderConfig)
-  from corenet_tpu_torch.ops import block_scatter as scatter
+  from corenet_tpu_torch.ops import blocked_raster as raster
   from corenet_tpu_torch.ops import fgbg_loss as fgbg
   from corenet_tpu_torch.ops import phased_gt as phased
   from corenet_tpu_torch.ops import skip_gather as op
@@ -5182,7 +5367,7 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   # 6. Training on ground truth voxelized in the step, phase loss, h7.
-  mods = (op, fgbg, scatter, phased)
+  mods = (op, fgbg, raster, phased)
   gt_launches, k3_row, k4_row, gt_split = train_gt_h7(
       torch, mods, CoreNet, CoreNetConfig(DecoderConfig(OUTPUT_RES, 2)),
       image, camera, dev)
@@ -5353,14 +5538,29 @@ def main() -> int:
        "replaces": replaces, "launches": launches,
        "launches_by_path": by_path(index, 0, 0),
        **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms")},
-       "bound_by": "bytes", "library_ms": None, "library_call": None,
+                                    "bound_ms", "bound_by")},
+       "library_ms": None, "library_call": None,
        "timing": entry["timing"], "shapes": [row]}
       for name, source, replaces, index, launches, row in (
-          ("block_scatter_or", "block_scatter",
-           "corenet_tpu/ops/block_scatter.py:219", 3, gt_launches[3], k3_row),
+          ("blocked_raster_or", "blocked_raster",
+           "corenet_tpu/ops/block_scatter.py:219 with "
+           "corenet_tpu/voxel/raster_fast.py:147 (_phase_a)", 3,
+           gt_launches[3], k3_row),
           ("phased_gt", "phased_gt", "corenet_tpu/ops/phased_gt.py:128", 4,
            gt_launches[4], k4_row))]
+  # The standalone scatter, which no main path calls any more (phase 6
+  # checks that its step launched it 0 times): held to its plain version
+  # at the step's shapes all the same.
+  scatter_row = k3_row.pop("scatter")
+  gt_entries.append(
+      {"name": "block_scatter_or (standalone)", "route": "cuda",
+       "source": "corenet_tpu_torch/csrc/block_scatter.cu",
+       "replaces": "corenet_tpu/ops/block_scatter.py:219", "launches": 0,
+       **{key: scatter_row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")},
+       "library_call": None, "timing": entry["timing"],
+       "shapes": [scatter_row]})
   packed_train = packed["train"]["packed pfs 5, bfloat16"]
   k1p = {row["dtype"]: row for row in packed["k1_bwd_packed"]}
   k4 = packed["k4_s4"]

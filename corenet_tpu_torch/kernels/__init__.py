@@ -28,7 +28,8 @@ from typing import Dict, Sequence, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("skip_gather", "fgbg_sums", "block_scatter", "phased_gt")
+SOURCES = ("skip_gather", "fgbg_sums", "block_scatter", "phased_gt",
+           "blocked_raster")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

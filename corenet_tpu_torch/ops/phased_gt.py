@@ -80,9 +80,10 @@ def phased_gt_forward(packed: torch.Tensor, s: int) -> torch.Tensor:
   if packed.device.type == "cpu":
     return phased_gt_reference(packed, s)
   b, h, w, nw = packed.shape
-  if 4 * s * w * nw > _MAX_SHARED_BYTES:
-    raise ValueError(f"phased_gt's kernel holds s rows of packed words in "
-                     f"shared memory: s·W·NW = {s * w * nw} words exceed "
+  staged = s * w * (nw if s == 2 else 1)
+  if 4 * staged > _MAX_SHARED_BYTES:
+    raise ValueError(f"phased_gt's kernel holds a block's packed words in "
+                     f"shared memory: {staged} words exceed "
                      f"{_MAX_SHARED_BYTES // 4}")
   d = 32 * nw
   out = torch.empty((b, d // s, h // s, (w // s) * s ** 3),

@@ -4,14 +4,16 @@ ground truth's fast path.
 Counterpart of corenet_tpu/voxel/raster_fast.py. Triangles come
 subdivided (data/batching.py) so that each one's projected bbox spans at
 most ~2.5 voxels; then each touches at most an 8×8×8-voxel block, and the
-rasterizer runs in two phases:
+rasterizer, `ops/blocked_raster.py` (one CUDA kernel on the card), does
+for each triangle what two phases spell out as tensor code here, its
+plain version on the CPU:
 
   Phase A (`_phase_a`, tensor code over [B, T]): samples a cell-aligned
     window of 4·irm pixels per triangle on its dominant plane, ORs the
     fragments' depth bits into a 4×4-cell mask, orients it into grid
     (y, x, z) and packs it into the z-words of an 8 × 8 block with an
     origin (voxel/packed.py layout).
-  Phase B (`ops/block_scatter.py`, a CUDA kernel on the card): ORs every
+  Phase B (`ops/block_scatter.py::block_scatter_or_reference`): ORs every
     block into the bit-packed grid.
 
 Then the packed interior fill (voxel/packed.py). The sampling follows the
@@ -31,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from corenet_tpu_torch.ops.block_scatter import block_scatter_or
+from corenet_tpu_torch.ops.blocked_raster import blocked_raster_or
 from corenet_tpu_torch.voxel.packed import (
     fill_inside_packed, shift_along, shift_right, unpack_grid)
 from corenet_tpu_torch.voxel.voxelize import (
@@ -290,12 +292,11 @@ def voxelize_blocked_packed(
     raise ValueError(f"the blocked rasterizer needs a cubic grid whose "
                      f"extent is a multiple of 32, got {resolution}")
   m = d
-  nw = m // 32
-  origins, pw = _phase_a(triangles, tri_mesh_slot, view2voxel, tri_valid,
-                         m=m, irm=int(image_resolution_multiplier),
-                         conservative=conservative_rasterization)
-  packed = block_scatter_or(origins, pw, meshes=num_meshes, h=m, w=m, nw=nw)
-  packed = packed.reshape(packed.shape[:-1] + (m, nw))
+  packed = blocked_raster_or(triangles, tri_mesh_slot, view2voxel, tri_valid,
+                             meshes=num_meshes, m=m,
+                             irm=int(image_resolution_multiplier),
+                             conservative=conservative_rasterization)
+  packed = packed.reshape(packed.shape[:-1] + (m, m // 32))
   if fill_inside:
     packed = fill_inside_packed(packed, fill_rounds=fill_rounds)
   return packed

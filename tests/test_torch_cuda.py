@@ -25,6 +25,7 @@ from corenet_tpu_torch.models import skip
 from corenet_tpu_torch.models.corenet import (
     CoreNet, CoreNetConfig, DecoderConfig)
 from corenet_tpu_torch.ops import block_scatter as scatter
+from corenet_tpu_torch.ops import blocked_raster as raster
 from corenet_tpu_torch.ops import fgbg_loss as fgbg
 from corenet_tpu_torch.ops import phased_gt as phased
 from corenet_tpu_torch.ops import skip_gather as op
@@ -302,6 +303,67 @@ def test_block_scatter_kernel_equals_plain_version(device, b, t, meshes, hw,
   assert float((got != 0).float().mean()) > 0.05
 
 
+def _raster_batch(m, irm, seed):
+  """Two scenes for the blocked rasterizer at grid m and multiplier irm:
+  the cube shell subdivided to irm's window contract, small seeded
+  triangles (slots 0 and 1), zero-area ones (equal vertices, collinear),
+  ones clipped at and beyond the grid's faces, invalid rows that hold
+  triangles, and slots outside [0, 2)."""
+  rng = np.random.default_rng(seed)
+  max_edge = int(2.5 * irm) / irm / m
+  lo, hi = 0.3, 0.7
+  corners = np.array([[lo, lo, lo], [hi, lo, lo], [hi, hi, lo],
+                      [lo, hi, lo], [lo, lo, hi], [hi, lo, hi],
+                      [hi, hi, hi], [lo, hi, hi]], np.float32)
+  faces = [(0, 2, 1), (0, 3, 2), (4, 5, 6), (4, 6, 7), (0, 1, 5), (0, 5, 4),
+           (2, 3, 7), (2, 7, 6), (1, 2, 6), (1, 6, 5), (0, 4, 7), (0, 7, 3)]
+  cube = subdivide_triangles(corners[np.array(faces)], max_edge)
+  point = rng.uniform(-0.03, 1.03, (600, 1, 3))
+  point[:200, 0, rng.integers(0, 3, 200)] = rng.choice(
+      [-0.01, 0.0, 0.999, 1.0, 1.01], 200)
+  small = point + rng.uniform(-1, 1, (600, 3, 3)) * max_edge * 0.6
+  small[:40] = point[:40]  # three equal vertices
+  small[40:80, 1] = point[40:80, 0] + (small[40:80, 2] - point[40:80, 0]) / 2
+  tris = np.concatenate([cube, small]).astype(np.float32)
+  t = len(tris) + 32
+  triangles = rng.uniform(0, 1, (2, t, 3, 3)).astype(np.float32)
+  triangles[:, :len(tris)] = tris
+  triangles[1, :len(tris)] += np.float32(0.02)
+  slot = rng.integers(0, 2, (2, t)).astype(np.int32)
+  slot[:, :4] = [2, -1, 1 << 20, -(1 << 20)]
+  valid = np.zeros((2, t), bool)
+  valid[:, :len(tris)] = rng.random((2, len(tris))) > 0.05
+  offsets = torch.from_numpy(rng.uniform(0, 1, (2, 3)).astype(np.float32))
+  return (torch.from_numpy(triangles), torch.from_numpy(slot),
+          gt._view2voxel_uniform(offsets, float(m), 2),
+          torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("conservative", [False, True])
+@pytest.mark.parametrize("m,irm", [(32, 1), (32, 2), (32, 3), (32, 8),
+                                   (64, 8), (128, 1), (128, 8)])
+def test_blocked_raster_kernel_equals_plain_version(device, m, irm,
+                                                    conservative):
+  inputs = [x.to(device) for x in _raster_batch(m, irm, m + irm)]
+  kw = dict(meshes=2, m=m, irm=irm, conservative=conservative)
+  before = raster.launch_count
+  got = raster.blocked_raster_or(*inputs, **kw)
+  again = raster.blocked_raster_or(*inputs, **kw)
+  torch.cuda.synchronize()
+  assert raster.launch_count == before + 2
+  assert got.shape == (2, 2, m, m * (m // 32)) and got.dtype == torch.int32
+  want = raster.blocked_raster_reference(*inputs, **kw)
+  assert torch.equal(got, want) and torch.equal(again, got)
+  assert int((got != 0).sum()) > 100
+
+
+def test_blocked_raster_kernel_refuses_a_grid_it_was_not_built_for(device):
+  inputs = [x.to(device) for x in _raster_batch(32, 8, 0)]
+  with pytest.raises(RuntimeError, match="kernel launch failed"):
+    raster.blocked_raster_or(*inputs, meshes=2, m=32, irm=1 << 20,
+                             conservative=False)
+
+
 @pytest.mark.parametrize("s", [2, 4])
 @pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 32, 48, 64),
                                    (4, 128, 128, 128)])
@@ -360,10 +422,11 @@ def test_packed_gt_on_card_equals_cpu(device):
           "grid_offset")
   want, _ = gt.voxelize_batch_packed_fgbg(*(batch[k] for k in keys),
                                           **kwargs)
-  before = scatter.launch_count
+  before = raster.launch_count, scatter.launch_count
   got, v2x = gt.voxelize_batch_packed_fgbg(
       *(batch[k].to(device) for k in keys), **kwargs)
-  assert scatter.launch_count == before + 1
+  assert (raster.launch_count, scatter.launch_count) == (before[0] + 1,
+                                                         before[1])
   assert torch.equal(got.cpu(), want)
   assert v2x.device == got.device
 
@@ -388,11 +451,11 @@ def test_phase_loss_train_step_on_card_matches_cpu(device, monkeypatch):
     state = create_train_state(model, device=dev)
     step = make_train_step(state.model, state.optimizer, "FG_BG",
                            (32, 32, 32), voxelization_kwargs=kwargs)
-    counts = (scatter.launch_count, phased.launch_count, op.launch_count,
+    counts = (raster.launch_count, phased.launch_count, op.launch_count,
               op.backward_launch_count, fgbg.launch_count)
     state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
     losses.append(float(metrics["loss"]))
-  after = (scatter.launch_count, phased.launch_count, op.launch_count,
+  after = (raster.launch_count, phased.launch_count, op.launch_count,
            op.backward_launch_count, fgbg.launch_count)
   assert tuple(a - c for a, c in zip(after, counts)) == (1, 1, 4, 4, 1)
   assert losses[1] == pytest.approx(losses[0], rel=1e-4)
@@ -517,12 +580,12 @@ def test_packed_phase_loss_step_on_card_matches_cpu(device, monkeypatch):
     state = create_train_state(model, device=dev)
     step = make_train_step(state.model, state.optimizer, "FG_BG",
                            (64, 64, 64), voxelization_kwargs=kwargs)
-    counts = (scatter.launch_count, phased.launch_count, op.launch_count,
+    counts = (raster.launch_count, phased.launch_count, op.launch_count,
               op.backward_launch_count, fgbg.launch_count)
     del factors[:], backwards[:]
     state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
     losses.append(float(metrics["loss"]))
-  after = (scatter.launch_count, phased.launch_count, op.launch_count,
+  after = (raster.launch_count, phased.launch_count, op.launch_count,
            op.backward_launch_count, fgbg.launch_count)
   assert tuple(a - c for a, c in zip(after, counts)) == (1, 1, 4, 4, 1)
   assert factors == [4] and sorted(backwards) == [3, 3, 3, 4]
@@ -544,7 +607,8 @@ GT_KEYS = ("triangles", "tri_mesh_slot", "tri_valid", "mesh_labels",
 def test_general_gt_on_card_equals_cpu(device, res, kwargs):
   """The general rasterizer, the dense fill and the label compose: every
   float32 operation is its own kernel on both devices, so the grids are
-  equal bit for bit; no block scatter is launched."""
+  equal bit for bit; neither the blocked rasterizer nor the block scatter
+  is launched."""
   batch = _cube_batch(res)
   batch["mesh_labels"] = torch.tensor([[3, 0], [1, 2]], dtype=torch.int32)
   batch["tri_mesh_slot"][1, ::3] = 1
@@ -552,10 +616,10 @@ def test_general_gt_on_card_equals_cpu(device, res, kwargs):
   kwargs = dict(kwargs, resolution=(res,) * 3,
                 max_bbox_pixels=VOXELIZE_WINDOW_PIXELS)
   want, _ = gt.voxelize_batch(*(batch[k] for k in GT_KEYS), **kwargs)
-  before = scatter.launch_count
+  before = raster.launch_count, scatter.launch_count
   got, v2x = gt.voxelize_batch(*(batch[k].to(device) for k in GT_KEYS),
                                **kwargs)
-  assert scatter.launch_count == before
+  assert (raster.launch_count, scatter.launch_count) == before
   assert got.dtype == torch.int32 and v2x.device == got.device
   assert torch.equal(got.cpu(), want)
   assert set(want.unique().tolist()) == {0, 1, 2, 3}
@@ -693,8 +757,8 @@ def _plain_kernels(monkeypatch):
       op, "skip_gather_backward",
       lambda *args, grid_resolution: op.skip_gather_backward_reference(*args))
   monkeypatch.setattr(fgbg, "fgbg_sums_forward", fgbg.fgbg_sums_reference)
-  monkeypatch.setattr(scatter, "block_scatter_or_forward",
-                      scatter.block_scatter_or_reference)
+  monkeypatch.setattr(raster, "blocked_raster_forward",
+                      raster.blocked_raster_reference)
   monkeypatch.setattr(phased, "phased_gt_forward", phased.phased_gt_reference)
 
 
@@ -823,12 +887,12 @@ def test_nccl_group_of_one_steps_as_no_group_does(device, tmp_path,
 
   def one_step():
     model.load_state_dict(snapshot)
-    counts = (scatter.launch_count, phased.launch_count, op.launch_count,
+    counts = (raster.launch_count, phased.launch_count, op.launch_count,
               op.backward_launch_count, fgbg.launch_count)
     collectives = mesh.collective_count
     new_state, metrics = step(state, batch)
     torch.cuda.synchronize()
-    after = (scatter.launch_count, phased.launch_count, op.launch_count,
+    after = (raster.launch_count, phased.launch_count, op.launch_count,
              op.backward_launch_count, fgbg.launch_count)
     return (float(metrics["loss"]), new_state.global_step,
             {n: p.grad.clone() for n, p in model.named_parameters()},
