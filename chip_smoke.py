@@ -492,27 +492,27 @@ def serve(torch, op, label, infer, args, shape):
   first forward and the figures: median (min, max) ms per forward,
   scenes/s, peak memory, busy time, idle share, convolution shares."""
   torch.cuda.synchronize()
-  op.launch_count = 0
+  zero_counts(op)
   start = time.perf_counter()
   pmf = infer(*args)
   torch.cuda.synchronize()
   first_s = time.perf_counter() - start
-  launches = op.launch_count
+  launches = launch_counts(op)[0]
   if launches != 4:
     raise AssertionError(f"{label} forward launched skip_gather {launches} "
                          "times, expected 4 (one per skip)")
   sum_err = check_pmf(torch, pmf, shape)
   del pmf
   torch.cuda.reset_peak_memory_stats()
-  op.launch_count = 0
+  zero_counts(op)
   times = []
   for _ in range(SERVE_RUNS):
     start = time.perf_counter()
     infer(*args)
     torch.cuda.synchronize()
     times.append((time.perf_counter() - start) * 1e3)
-  if op.launch_count != 4 * SERVE_RUNS:
-    raise AssertionError(f"{op.launch_count} launches in {SERVE_RUNS} "
+  if launch_counts(op)[0] != 4 * SERVE_RUNS:
+    raise AssertionError(f"{launch_counts(op)[0]} launches in {SERVE_RUNS} "
                          "forwards")
   mem = torch.cuda.max_memory_allocated()
   ms = statistics.median(times)
@@ -743,18 +743,40 @@ def plain_versions(*modules):
       setattr(module, name, fn)
 
 
+def counter(name):
+  """The total of one of the program's counters (utils/tracing.py)."""
+  from corenet_tpu_torch.utils import tracing
+  return tracing.counters().get(name, 0)
+
+
+def route_counts():
+  """The labels' routes taken so far (train/gt.py::labels_slab)."""
+  return {route: counter(f"gt.route.{route}")
+          for route in ("space_shared", "replicated")}
+
+
+def _launch_names(modules):
+  """The launch counters of the given ops modules: `<op>.launches`, and
+  skip_gather's backward too."""
+  for module in modules:
+    op = module.__name__.rsplit(".", 1)[-1]
+    yield f"{op}.launches"
+    if op == "skip_gather":
+      yield f"{op}.backward_launches"
+
+
+_ZEROED = {}  # each launch counter's total when `zero_counts` last ran
+
+
 def launch_counts(*modules):
-  """Every launch counter of the given ops modules."""
-  return tuple(getattr(module, name) for module in modules
-               for name in ("launch_count", "backward_launch_count")
-               if hasattr(module, name))
+  """The launches of the given ops modules since `zero_counts`."""
+  return tuple(counter(n) - _ZEROED.get(n, 0)
+               for n in _launch_names(modules))
 
 
 def zero_counts(*modules):
-  for module in modules:
-    for name in ("launch_count", "backward_launch_count"):
-      if hasattr(module, name):
-        setattr(module, name, 0)
+  for n in _launch_names(modules):
+    _ZEROED[n] = counter(n)
 
 
 def ellipsoid_grid(torch, dev, res, batch, offsets, seed):
@@ -935,12 +957,12 @@ def train_h7(torch, op, fgbg, CoreNet, config, image, camera, v2x, offsets,
       f"foreground share {float(grid.float().mean()):.4f}")
 
   torch.cuda.synchronize()
-  op.launch_count = op.backward_launch_count = fgbg.launch_count = 0
+  zero_counts(op, fgbg)
   start = time.perf_counter()
   state, metrics = step(state, batch)
   torch.cuda.synchronize()
   first_s = time.perf_counter() - start
-  launches = (op.launch_count, op.backward_launch_count, fgbg.launch_count)
+  launches = launch_counts(op, fgbg)
   if launches != (4, 4, 1):
     raise AssertionError(f"h7 train step launched (skip_gather, its "
                          f"backward, fgbg_sums) {launches} times, expected "
@@ -1301,7 +1323,6 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
   from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
-  from corenet_tpu_torch.voxel import packed as packed_mod
   from corenet_tpu_torch.voxel import raster_fast
   op, fgbg, raster, phased = mods
   host, counts = triangle_batch(torch, image, camera, SEED + 41)
@@ -1325,7 +1346,7 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
   phased.phased_gt_forward = catch
   torch.cuda.synchronize()
   zero_counts(*mods, scatter)
-  rounds0 = packed_mod.round_count
+  rounds0 = counter("fill.rounds")
   phase_a_calls = []
   start = time.perf_counter()
   try:
@@ -1336,15 +1357,16 @@ def train_gt_h7(torch, mods, CoreNet, config, image, camera, dev):
     phased.phased_gt_forward = kernel_phased
   first_s = time.perf_counter() - start
   launches = launch_counts(*mods)
-  rounds = packed_mod.round_count - rounds0
-  if (launches != (4, 4, 1, 1, 1) or scatter.launch_count
+  rounds = counter("fill.rounds") - rounds0
+  if (launches != (4, 4, 1, 1, 1) or launch_counts(scatter)[0]
       or phase_a_calls):
     raise AssertionError(f"h7 train-gt step launched (skip_gather, its "
                          f"backward, fgbg_sums, blocked_raster_or, "
                          f"phased_gt) {launches} times, expected (4, 4, 1, "
                          f"1, 1), the standalone block_scatter_or "
-                         f"{scatter.launch_count} times and called phase A "
-                         f"{len(phase_a_calls)} times, expected 0 and 0")
+                         f"{launch_counts(scatter)[0]} times and called "
+                         f"phase A {len(phase_a_calls)} times, expected 0 "
+                         "and 0")
   first_loss = float(metrics["loss"])
   bad = [n for n, p in state.model.named_parameters()
          if p.grad is None or not bool(torch.isfinite(p.grad).all())]
@@ -1931,13 +1953,13 @@ def train_y1(torch, mods, CoreNet, config, image, camera, dev):
 
   torch.cuda.synchronize()
   zero_counts(*mods)
-  rounds0 = fill_mod.round_count
+  rounds0 = counter("fill.rounds")
   start = time.perf_counter()
   state, metrics = step(state, batch)
   torch.cuda.synchronize()
   first_s = time.perf_counter() - start
   launches = launch_counts(*mods)
-  rounds = fill_mod.round_count - rounds0
+  rounds = counter("fill.rounds") - rounds0
   if launches != (4, 4, 1, 0, 0):
     raise AssertionError(f"y1 train step launched (skip_gather, its "
                          f"backward, fgbg_sums, blocked_raster_or, phased_gt) "
@@ -3293,7 +3315,7 @@ def dist_nccl_world1(torch, mods, CoreNet, config, batch, dev, root):
     state.optimizer.load_state_dict(snap_opt)
     torch.cuda.synchronize()
     zero_counts(*mods)
-    count = mesh.collective_count
+    count = counter("mesh.collectives")
     torch.backends.cudnn.deterministic = True
     try:
       (new_state, metrics), renorm = renorm_collectives(
@@ -3307,7 +3329,7 @@ def dist_nccl_world1(torch, mods, CoreNet, config, batch, dev, root):
             "stats": {n: b.detach().clone()
                       for n, b in model.named_buffers()},
             "launches": launch_counts(*mods),
-            "collectives": mesh.collective_count - count,
+            "collectives": counter("mesh.collectives") - count,
             "renorm_collectives": renorm,
             "global_step": new_state.global_step - state.global_step}
 
@@ -3493,7 +3515,6 @@ def dist_step_rank(torch, mods, CoreNet, config, batch, dtype, dev,
                    deterministic=False):
   """One packed step from SEED + 140's weights on `batch` (phase 12's
   scenes); the figures of (b)."""
-  from corenet_tpu_torch.parallel import mesh
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
   model, _ = seeded_model(torch, CoreNet, config, SEED + 140,
@@ -3505,7 +3526,7 @@ def dist_step_rank(torch, mods, CoreNet, config, batch, dtype, dev,
                          voxelization_kwargs=H7_VOX)
   torch.cuda.synchronize()
   zero_counts(*mods)
-  count = mesh.collective_count
+  count = counter("mesh.collectives")
   torch.backends.cudnn.deterministic = deterministic
   try:
     new_state, metrics = step(state, batch)
@@ -3513,7 +3534,7 @@ def dist_step_rank(torch, mods, CoreNet, config, batch, dtype, dev,
   finally:
     torch.backends.cudnn.deterministic = False
   out = {"loss": float(metrics["loss"]), "launches": launch_counts(*mods),
-         "collectives": mesh.collective_count - count,
+         "collectives": counter("mesh.collectives") - count,
          "global_step": new_state.global_step,
          "grads": {n: p.grad.detach().float().cpu()
                    for n, p in model.named_parameters()},
@@ -4589,7 +4610,6 @@ def run_space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
   and the encoder's saved activations), the labels' digest, and the
   batch of each K3 and K4 launch. `deterministic` runs cuDNN's
   deterministic algorithms."""
-  from corenet_tpu_torch.parallel import mesh
   from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
@@ -4614,8 +4634,8 @@ def run_space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
                lambda *_: marks.append(torch.cuda.memory_allocated(dev)))]
   torch.cuda.synchronize()
   zero_counts(*mods)
-  count = mesh.collective_count
-  routes = dict(gt.route_counts)
+  count = counter("mesh.collectives")
+  routes = route_counts()
   start = torch.cuda.memory_allocated(dev)
   torch.backends.cudnn.deterministic = deterministic
   try:
@@ -4645,8 +4665,8 @@ def run_space_step(torch, mods, CoreNet, config, batch, dtype, packed, dev,
          "labels_shape": list(labels[0][0].shape),
          "packed_order_backwards": sum(1 for args, _ in backwards
                                        if args[0].dim() == 4),
-         "collectives": mesh.collective_count - count,
-         "routes": {k: v - routes[k] for k, v in gt.route_counts.items()
+         "collectives": counter("mesh.collectives") - count,
+         "routes": {k: v - routes[k] for k, v in route_counts().items()
                     if v != routes[k]},
          "renorm_collectives": renorm,
          "shard_stage": model.decoder.shard_stage,
@@ -4678,7 +4698,6 @@ def space_gt_times(torch, mods, rank, dev, batch):
   (gt_kernel_rows)."""
   from corenet_tpu_torch.parallel import mesh
   from corenet_tpu_torch.train import gt
-  from corenet_tpu_torch.voxel import packed as packed_mod
   _, _, raster, phased = mods
   per = BATCH // DIST_WORLD
   out = {}
@@ -4688,10 +4707,10 @@ def space_gt_times(torch, mods, rank, dev, batch):
       continue
     for name, lo, n in (("share", rank * per, per), ("whole", 0, BATCH)):
       part = {k: batch[k][lo:lo + n] for k in GT_KEYS}
-      rounds0 = packed_mod.round_count
+      rounds0 = counter("fill.rounds")
       packed_or, _ = gt.voxelize_batch_packed_fgbg(
           *(part[k] for k in GT_KEYS), resolution=OUTPUT_RES, **H7_VOX)
-      rounds = packed_mod.round_count - rounds0
+      rounds = counter("fill.rounds") - rounds0
       k3, k4, split = gt_kernel_rows(
           torch, raster, phased, part, packed_or, rounds, s=4,
           where=f"on rank {rank}'s {n} scenes ({name})")
@@ -5120,14 +5139,14 @@ def nccl_worker(torch, mods, rank, dev, root):
     (y * douts[h]).sum().backward()
     return y.detach(), xt.grad
 
-  count = mesh.collective_count
+  count = counter("mesh.collectives")
   out = {"a2a": mesh.space_all_to_all(rows).cpu(),
-         "a2a_collectives": mesh.collective_count - count,
+         "a2a_collectives": counter("mesh.collectives") - count,
          "a2a_ms": timed(lambda: mesh.space_all_to_all(rows))}
   for h in NCCL_HALOS:
-    count = mesh.collective_count
+    count = counter("mesh.collectives")
     y, dx = halo(h)
-    out["halo", h] = (y.cpu(), dx.cpu(), mesh.collective_count - count)
+    out["halo", h] = (y.cpu(), dx.cpu(), counter("mesh.collectives") - count)
     out["halo_ms", h] = timed(lambda: halo(h))
   return out
 
@@ -5317,14 +5336,14 @@ def main() -> int:
   sequential = super_resolution_from_model(y1, y1_state, Y1_NATIVE,
                                            batch_offsets=False,
                                            device="cuda")
-  op.launch_count = 0
+  zero_counts(op)
   start = time.perf_counter()
   pmf_seq = sequential(*args)
   torch.cuda.synchronize()
   seq_s = time.perf_counter() - start
-  if op.launch_count != 4 * 64:
+  if launch_counts(op)[0] != 4 * 64:
     raise AssertionError(f"y1 sequential passes launched skip_gather "
-                         f"{op.launch_count} times, expected 256")
+                         f"{launch_counts(op)[0]} times, expected 256")
   seq_diff = float((pmf - pmf_seq).abs().max())
   # Convolution algorithms depend on the batch shape; both are float32.
   if seq_diff > 1e-4:

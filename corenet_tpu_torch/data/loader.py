@@ -34,6 +34,7 @@ import numpy as np
 
 from corenet_tpu_torch.data import batching
 from corenet_tpu_torch.data.dataset import CoreNetDataset
+from corenet_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -92,7 +93,8 @@ class DataLoader:
                worker_processes: Optional[bool] = None):
     """batch_transform: optional fn(HostBatch) -> dict of extra step
     inputs, run in the producer thread (e.g. native host-GT grids —
-    batching.host_voxelize — overlapping device compute).
+    batching.host_voxelize — overlapping device compute), inside the
+    batch assembly's `loader.collate` span (utils/tracing.py).
 
     worker_processes: True = decode in spawned worker processes,
     False = threads, None (default) = processes when num_workers > 1
@@ -153,11 +155,12 @@ class DataLoader:
     offsets = None
     if self.random_grid_offset:
       offsets = self.rng.random((self.batch_size, 3)).astype(np.float32)
-    hb = batching.batch(elements, max_edge_view=self.max_edge_view,
-                        triangle_buckets=self.triangle_buckets,
-                        max_meshes=self.max_meshes, grid_offsets=offsets)
-    if self.batch_transform is not None:
-      hb.extra.update(self.batch_transform(hb))
+    with tracing.span("loader.collate"):
+      hb = batching.batch(elements, max_edge_view=self.max_edge_view,
+                          triangle_buckets=self.triangle_buckets,
+                          max_meshes=self.max_meshes, grid_offsets=offsets)
+      if self.batch_transform is not None:
+        hb.extra.update(self.batch_transform(hb))
     return hb, valid
 
   def __iter__(self) -> Iterator:

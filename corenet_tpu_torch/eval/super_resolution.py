@@ -24,6 +24,7 @@ from corenet_tpu_torch.models.corenet import CoreNet
 from corenet_tpu_torch.models.decoder import packed_eligible
 from corenet_tpu_torch.models.resnet50 import ResNet50Features
 from corenet_tpu_torch.train.step import compute_v2s
+from corenet_tpu_torch.utils import tracing
 from corenet_tpu_torch.utils.device import checked_device
 
 # (image, camera, v2x, offsets[m³, B, 3]) → pmf float32[m³, B, d, h, w, C]
@@ -34,7 +35,9 @@ MultiOffsetInferenceFn = Callable[
 class SuperResolutionInference:
   """(image, camera, v2x, grid_offsets, output_resolution) → PMF
   float32[B, D, H, W, C] on `device`. Inputs may be numpy arrays or
-  tensors; they are moved to `device`."""
+  tensors; they are moved to `device`. Each call is a `serve.request`
+  span (utils/tracing.py) whose id is the call's number, with the spans
+  serve.to_device, serve.encode, serve.decode and serve.assemble."""
 
   def __init__(self, inference_fn: MultiOffsetInferenceFn,
                resolution: Tuple[int, int, int],
@@ -43,6 +46,7 @@ class SuperResolutionInference:
     self.inference_fn = inference_fn
     self.device = torch.device(device)
     self._offset_cache = {}
+    self._requests = 0
 
   def get_resolution_multiplier(self,
                                 output_resolution: Tuple[int, int, int]) -> int:
@@ -73,25 +77,30 @@ class SuperResolutionInference:
   def __call__(self, image, camera_transform, view_to_voxel_transform,
                grid_offsets, output_resolution: Tuple[int, int, int]
                ) -> torch.Tensor:
-    image = torch.as_tensor(image, device=self.device)
-    camera_transform, view_to_voxel_transform, grid_offsets = (
-        torch.as_tensor(t, dtype=torch.float32, device=self.device)
-        for t in (camera_transform, view_to_voxel_transform, grid_offsets))
-    m = self.get_resolution_multiplier(output_resolution)
-    native_offsets = self.get_native_offsets(output_resolution, grid_offsets)
+    self._requests += 1
+    with tracing.span("serve.request", self._requests):
+      with tracing.span("serve.to_device"):
+        image = torch.as_tensor(image, device=self.device)
+        camera_transform, view_to_voxel_transform, grid_offsets = (
+            torch.as_tensor(t, dtype=torch.float32, device=self.device)
+            for t in (camera_transform, view_to_voxel_transform,
+                      grid_offsets))
+        m = self.get_resolution_multiplier(output_resolution)
+        native_offsets = self.get_native_offsets(output_resolution,
+                                                 grid_offsets)
+        # v2x @ diag(1/m, 1/m, 1/m, 1), as a column scaling.
+        scale = torch.tensor([1 / m, 1 / m, 1 / m, 1.0],
+                             dtype=torch.float32, device=self.device)
+        v2x = view_to_voxel_transform * scale
 
-    # v2x @ diag(1/m, 1/m, 1/m, 1), as a column scaling.
-    scale = torch.tensor([1 / m, 1 / m, 1 / m, 1.0], dtype=torch.float32,
-                         device=self.device)
-    v2x = view_to_voxel_transform * scale
-
-    pmfs = self.inference_fn(image, camera_transform, v2x, native_offsets)
-    b = image.shape[0]
-    d, h, w, c = pmfs.shape[2:]
-    pmfs = pmfs.reshape(m, m, m, b, d, h, w, c)
-    # Interleave: fine[z*m+mz, y*m+my, x*m+mx] = pass (mz, my, mx).
-    pmfs = pmfs.permute(3, 4, 0, 5, 1, 6, 2, 7)
-    return pmfs.reshape(b, m * d, m * h, m * w, c)
+      pmfs = self.inference_fn(image, camera_transform, v2x, native_offsets)
+      with tracing.span("serve.assemble"):
+        b = image.shape[0]
+        d, h, w, c = pmfs.shape[2:]
+        pmfs = pmfs.reshape(m, m, m, b, d, h, w, c)
+        # Interleave: fine[z*m+mz, y*m+my, x*m+mx] = pass (mz, my, mx).
+        pmfs = pmfs.permute(3, 4, 0, 5, 1, 6, 2, 7)
+        return pmfs.reshape(b, m * d, m * h, m * w, c)
 
 
 def _tile_batch(features: ResNet50Features, k: int) -> ResNet50Features:
@@ -115,18 +124,20 @@ class _MultiOffset(nn.Module):
     self.batch_offsets = batch_offsets
 
   def forward(self, image, camera, v2x, grid_offsets):
-    v2s = compute_v2s(camera, v2x)
-    features = self.model.encode(image)
-    if self.batch_offsets:
-      k, b = grid_offsets.shape[:2]
-      logits = self.model.decode(_tile_batch(features, k),
-                                 v2s.repeat(k, 1, 1),
-                                 grid_offsets.reshape(k * b, 3))
-      pmf = torch.softmax(logits, dim=-1)
-      return pmf.reshape((k, b) + pmf.shape[1:])
-    return torch.stack([
-        torch.softmax(self.model.decode(features, v2s, offset), dim=-1)
-        for offset in grid_offsets])
+    with tracing.span("serve.encode"):
+      features = self.model.encode(image)
+    with tracing.span("serve.decode"):
+      v2s = compute_v2s(camera, v2x)
+      if self.batch_offsets:
+        k, b = grid_offsets.shape[:2]
+        logits = self.model.decode(_tile_batch(features, k),
+                                   v2s.repeat(k, 1, 1),
+                                   grid_offsets.reshape(k * b, 3))
+        pmf = torch.softmax(logits, dim=-1)
+        return pmf.reshape((k, b) + pmf.shape[1:])
+      return torch.stack([
+          torch.softmax(self.model.decode(features, v2s, offset), dim=-1)
+          for offset in grid_offsets])
 
 
 def _twin(model: CoreNet, packed_execution: bool) -> CoreNet:

@@ -19,12 +19,10 @@ import ctypes
 import torch
 
 from corenet_tpu_torch import kernels
+from corenet_tpu_torch.utils import tracing
 
 DB = 8  # voxel block extent per axis
 
-# Launches of the CUDA kernel in this process. Incremented only where the
-# kernel is launched, so a run can show that its path went through it.
-launch_count = 0
 
 _SIGNATURES = {
     "block_scatter_or_fwd": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -112,8 +110,7 @@ def block_scatter_or_forward(origins: torch.Tensor, pw: torch.Tensor, *,
     msg = lib.block_scatter_error_string(err).decode()
     raise RuntimeError(f"block_scatter_or kernel launch failed: CUDA error "
                        f"{err} ({msg})")
-  global launch_count
-  launch_count += 1
+  tracing.count("block_scatter.launches")
   return out
 
 

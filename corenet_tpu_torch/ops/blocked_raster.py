@@ -27,10 +27,8 @@ import torch
 
 from corenet_tpu_torch import kernels
 from corenet_tpu_torch.ops.block_scatter import block_scatter_or_reference
+from corenet_tpu_torch.utils import tracing
 
-# Launches of the CUDA kernel in this process. Incremented only where the
-# kernel is launched, so a run can show that its path went through it.
-launch_count = 0
 
 _SIGNATURES = {
     "blocked_raster_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -120,8 +118,7 @@ def blocked_raster_forward(triangles, tri_mesh_slot, view2voxel, tri_valid,
     msg = lib.blocked_raster_error_string(err).decode()
     raise RuntimeError(f"blocked_raster_or kernel launch failed: CUDA error "
                        f"{err} ({msg})")
-  global launch_count
-  launch_count += 1
+  tracing.count("blocked_raster.launches")
   return out
 
 

@@ -20,10 +20,8 @@ from typing import Optional, Tuple
 import torch
 
 from corenet_tpu_torch import kernels
+from corenet_tpu_torch.utils import tracing
 
-# Launches of the CUDA kernel in this process. Incremented only where the
-# kernel is launched, so a run can show that its path went through it.
-launch_count = 0
 
 _SIGNATURES = {
     "fgbg_sums_fwd": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -98,8 +96,7 @@ def fgbg_sums_forward(diff: torch.Tensor, gt: torch.Tensor
     msg = lib.fgbg_sums_error_string(err).decode()
     raise RuntimeError(f"fgbg_sums kernel launch failed: CUDA error {err} "
                        f"({msg})")
-  global launch_count
-  launch_count += 1
+  tracing.count("fgbg_loss.launches")
   return inter, union
 
 

@@ -25,11 +25,9 @@ import ctypes
 import torch
 
 from corenet_tpu_torch import kernels
+from corenet_tpu_torch.utils import tracing
 from corenet_tpu_torch.voxel.packed import unpack_grid
 
-# Launches of the CUDA kernel in this process. Incremented only where the
-# kernel is launched, so a run can show that its path went through it.
-launch_count = 0
 
 _SIGNATURES = {
     "phased_gt_fwd": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
@@ -99,8 +97,7 @@ def phased_gt_forward(packed: torch.Tensor, s: int) -> torch.Tensor:
     msg = lib.phased_gt_error_string(err).decode()
     raise RuntimeError(f"phased_gt kernel launch failed: CUDA error {err} "
                        f"({msg})")
-  global launch_count
-  launch_count += 1
+  tracing.count("phased_gt.launches")
   return out
 
 

@@ -18,12 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from corenet_tpu_torch import kernels
+from corenet_tpu_torch.utils import tracing
 
-# Launches of the forward and the backward CUDA kernel in this process.
-# Incremented only where a kernel is launched, so a run can show that its
-# path went through it.
-launch_count = 0
-backward_launch_count = 0
 
 _SIGNATURES = {
     "skip_gather_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -118,8 +114,7 @@ def skip_gather_forward(fmap_padded: torch.Tensor, px: torch.Tensor,
                               py.data_ptr(), out.data_ptr(), b, n, h2, w2,
                               c * elem, elem, stream)
   _raise_on(lib, err, "forward")
-  global launch_count
-  launch_count += 1
+  tracing.count("skip_gather.launches")
   return out
 
 
@@ -264,8 +259,7 @@ def skip_gather_backward(dout: torch.Tensor, px: torch.Tensor,
                               walk.depth // walk.z_phases, walk.z_phases,
                               walk.z_chunk, dout.element_size(), stream)
   _raise_on(lib, err, "backward")
-  global backward_launch_count
-  backward_launch_count += 1
+  tracing.count("skip_gather.backward_launches")
   return dfmap
 
 

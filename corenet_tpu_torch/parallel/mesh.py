@@ -63,12 +63,9 @@ import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-log = logging.getLogger(__name__)
+from corenet_tpu_torch.utils import tracing
 
-# Collectives launched on device tensors (the step's reduces, their
-# backward, the gradient all-reduce, state broadcasts, halo exchanges, the
-# labels' all-to-all); read by callers that count them per step.
-collective_count = 0
+log = logging.getLogger(__name__)
 
 _host_group = None
 
@@ -245,8 +242,7 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def _all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
-  global collective_count
-  collective_count += 1
+  tracing.count("mesh.collectives")
   dist.all_reduce(x, group=group)
   return x
 
@@ -390,8 +386,7 @@ def broadcast_tensors(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
   for dtype in sorted({t.dtype for t in tensors}, key=str):
     same = [t for t in tensors if t.dtype == dtype]
     flat = _flatten_dense_tensors(same)
-    global collective_count
-    collective_count += 1
+    tracing.count("mesh.collectives")
     dist.broadcast(flat, src)
     for t, value in zip(same, _unflatten_dense_tensors(flat, same)):
       t.copy_(value)

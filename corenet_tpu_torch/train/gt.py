@@ -42,16 +42,11 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from corenet_tpu_torch.parallel import mesh
+from corenet_tpu_torch.utils import tracing
 from corenet_tpu_torch.voxel import raster_fast
 from corenet_tpu_torch.voxel.fill import fill_inside_voxels
 from corenet_tpu_torch.voxel.voxelize import (
     get_sub_grid_centers, voxelize_triangles)
-
-
-# The labels' route under the 'space' axis (a depth_shard count > 1), one
-# count per `labels_slab` call that cuts a slab; read by tests, as the JAX package's
-# kernel_sharding.trace_counters.
-route_counts = {"space_shared": 0, "replicated": 0}
 
 
 def _slab_depth(depth: int, count: int) -> int:
@@ -103,7 +98,7 @@ def space_shared(ground_truth: GroundTruth, arrays: Sequence[torch.Tensor],
   if not shares_over_space(b, depth_shard):
     raise ValueError(f"a batch of {b} does not share over {count} space "
                      "ranks")
-  route_counts["space_shared"] += 1
+  tracing.count("gt.route.space_shared")
   per = b // count
   mine, v2x = ground_truth(*(a[index * per:(index + 1) * per]
                              for a in arrays))
@@ -126,7 +121,7 @@ def labels_slab(ground_truth: GroundTruth, arrays: Sequence[torch.Tensor],
   if shareable and shares_over_space(arrays[0].shape[0], depth_shard):
     return space_shared(ground_truth, arrays, depth_shard)
   if depth_shard[1] > 1:
-    route_counts["replicated"] += 1
+    tracing.count("gt.route.replicated")
   labels, v2x = ground_truth(*arrays)
   return depth_slab(labels, depth_shard), v2x
 

@@ -67,7 +67,7 @@ from corenet_tpu_torch.train import checkpoint as cpt_lib
 from corenet_tpu_torch.train import gt as gt_lib
 from corenet_tpu_torch.train import state as state_lib
 from corenet_tpu_torch.train.step import make_train_step
-from corenet_tpu_torch.utils import fs, misc
+from corenet_tpu_torch.utils import fs, misc, tracing
 from corenet_tpu_torch.utils.device import checked_device
 from corenet_tpu_torch.utils.summary import SummaryWriter
 from corenet_tpu_torch.utils.ui import WorkerProgress
@@ -348,21 +348,41 @@ class TrainPipeline:
   def train_steps(self):
     """Infinite generator of (global_step, metrics). Each epoch's dataset
     is re-created from the current global step, so a resumed run continues
-    where the saved one was."""
+    where the saved one was. Each step is a `train.step` span (its id the
+    global step before it) whose children are the wait for the loader's
+    batch, its copy to the device and the step's own spans."""
     if self.state is None:
       raise RuntimeError("call create_or_load_state() first")
     while True:
-      loader = self._epoch_loader(self.state.global_step)
+      batches = iter(self._epoch_loader(self.state.global_step))
       got_batch = False
-      for hb, _ in loader:
-        got_batch = True
-        batch = {k: torch.from_numpy(v).to(self.device)
-                 for k, v in hb.step_inputs(self.task_type).items()}
-        self._last_batch = batch
-        self.state, metrics = self.train_step(self.state, batch)
-        yield self.state.global_step, metrics
+      try:
+        while True:
+          with tracing.span("train.step", self.state.global_step):
+            metrics = self._next_step(batches)
+          if metrics is None:
+            break
+          got_batch = True
+          yield self.state.global_step, metrics
+      finally:
+        batches.close()
       if not got_batch:
         raise RuntimeError("Empty training dataset")
+
+  def _next_step(self, batches) -> Optional[Dict[str, torch.Tensor]]:
+    """One step on the loader's next batch: its metrics, or None at the
+    end of the epoch."""
+    with tracing.span("train.loader_wait"):
+      item = next(batches, None)
+    if item is None:
+      return None
+    hb, _ = item
+    with tracing.span("train.to_device"):
+      batch = {k: torch.from_numpy(v).to(self.device)
+               for k, v in hb.step_inputs(self.task_type).items()}
+    self._last_batch = batch
+    self.state, metrics = self.train_step(self.state, batch)
+    return metrics
 
   def audit_static_fill(self) -> Optional[bool]:
     """Whether the static interior fill reaches the exact fixpoint on one
@@ -407,7 +427,8 @@ class TrainPipeline:
 
     profile_dir: when set, `profile_steps` iterations from iteration
     `profile_start` run under torch.profiler, whose trace is written to
-    `<profile_dir>/trace.json` (Chrome trace format)."""
+    `<profile_dir>/trace.json` (Chrome trace format), with the program's
+    spans (utils/tracing.py) as named ranges."""
     self.create_or_load_state()
     config = self.config
     ev_temp = misc.StepEvent(0, config.checkpoint_interval)

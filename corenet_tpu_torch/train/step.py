@@ -39,6 +39,7 @@ from corenet_tpu_torch.ops.phased_gt import phase_permute, phased_gt
 from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.train import gt
 from corenet_tpu_torch.train.state import TrainState
+from corenet_tpu_torch.utils import tracing
 from corenet_tpu_torch.voxel.parity import parity_voxelize_batch
 
 Batch = Dict[str, torch.Tensor]
@@ -93,8 +94,10 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   to phase-major labels (ops/phased_gt.py); else the labeled grid. The step
   runs the model in train mode (BatchRenorm on batch statistics, updating
   its running statistics), the task's loss, the backward pass and one
-  Adam update, all in place, and returns the state with global_step
-  advanced by B and {"loss": the loss before the update}.
+  Adam update, all in place, each in its span (train.gt, train.forward,
+  train.loss, train.backward, train.optimizer; utils/tracing.py), and
+  returns the state with global_step advanced by B and {"loss": the loss
+  before the update}.
 
   Under a process group the batch is this rank's shard, of the same B on
   every rank (checked each step); statistics and loss are the global
@@ -104,7 +107,7 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
   group's, and the labels are cut to the model's slab: the blocked GT
   routes share their voxelization over the space group when B divides by
   the space count (train/gt.py::labels_slab, which counts each route
-  taken in gt.route_counts).
+  taken as `gt.route.*` in utils/tracing.py).
   """
   loss_fn = loss_fn_for_task(task_type)
   resolution = tuple(resolution)
@@ -153,30 +156,35 @@ def make_train_step(model: CoreNet, optimizer: torch.optim.Optimizer,
     return labels, phased, v2x
 
   def step(state: TrainState, batch: Batch):
-    labels, phased, v2x = ground_truth(batch)
-    batch_size = batch["image"].shape[0]
-    mesh.assert_equal_across_ranks(batch_size, "the batch size")
-    v2s = compute_v2s(batch["camera"], v2x)
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    logits = model(batch["image"], v2s, batch["grid_offset"])
-    if phase_loss:
-      # The loss does not depend on voxel order: phase-major logits are
-      # paired with labels in the same order.
-      b, dq, hq = logits.shape[:3]
-      nc = model.config.decoder.num_output_channels
-      factor = logits.shape[-1] // nc
-      if factor != phase_s ** 3:
-        raise ValueError(f"phase-major logits of factor {factor}, expected "
-                         f"{phase_s ** 3}")
-      if not phased:
-        labels = phase_permute(labels.to(torch.uint8), phase_s)
-      loss = loss_fn(labels, logits.reshape(b, dq, hq, -1, nc))
-    else:
-      loss = loss_fn(labels, logits)
-    loss.backward()
-    mesh.all_reduce_gradients(model.parameters())
-    optimizer.step()
+    with tracing.span("train.gt"):
+      labels, phased, v2x = ground_truth(batch)
+    with tracing.span("train.forward"):
+      batch_size = batch["image"].shape[0]
+      mesh.assert_equal_across_ranks(batch_size, "the batch size")
+      v2s = compute_v2s(batch["camera"], v2x)
+      model.train()
+      optimizer.zero_grad(set_to_none=True)
+      logits = model(batch["image"], v2s, batch["grid_offset"])
+    with tracing.span("train.loss"):
+      if phase_loss:
+        # The loss does not depend on voxel order: phase-major logits are
+        # paired with labels in the same order.
+        b, dq, hq = logits.shape[:3]
+        nc = model.config.decoder.num_output_channels
+        factor = logits.shape[-1] // nc
+        if factor != phase_s ** 3:
+          raise ValueError(f"phase-major logits of factor {factor}, "
+                           f"expected {phase_s ** 3}")
+        if not phased:
+          labels = phase_permute(labels.to(torch.uint8), phase_s)
+        loss = loss_fn(labels, logits.reshape(b, dq, hq, -1, nc))
+      else:
+        loss = loss_fn(labels, logits)
+    with tracing.span("train.backward"):
+      loss.backward()
+      mesh.all_reduce_gradients(model.parameters())
+    with tracing.span("train.optimizer"):
+      optimizer.step()
     new_state = dataclasses.replace(
         state,
         global_step=state.global_step + batch_size * mesh.data_count())

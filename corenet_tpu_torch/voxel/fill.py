@@ -23,9 +23,7 @@ from typing import Optional
 
 import torch
 
-# Rounds of the adaptive fill run in this process (the fixpoint reads one
-# flag from the device per round).
-round_count = 0
+from corenet_tpu_torch.utils import tracing
 
 
 def _gated_prefix_or(seed: torch.Tensor, occupied_cumsum: torch.Tensor,
@@ -80,10 +78,9 @@ def _outside_mask(empty: torch.Tensor,
   """Empty voxels 6-connected to the grid's boundary through empty voxels.
 
   empty: bool[N, D, H, W]. fill_rounds: None runs rounds until one changes
-  nothing (the adaptive fixpoint; each round reads one flag from the
-  device, and adds one to `round_count`); an int runs exactly that many
-  rounds."""
-  global round_count
+  nothing (the adaptive fixpoint; each round counts `fill.rounds` and
+  reads one flag from the device inside a `fill.sync` span,
+  utils/tracing.py); an int runs exactly that many rounds."""
   seed, round_fn = _sweep_state(empty)
   outside = seed
   if fill_rounds is not None:
@@ -92,8 +89,10 @@ def _outside_mask(empty: torch.Tensor,
     return outside
   while True:
     new = round_fn(outside)
-    round_count += 1
-    changed = bool((new != outside).any())
+    flag = (new != outside).any()
+    with tracing.span("fill.sync"):
+      tracing.count("fill.rounds")
+      changed = bool(flag)
     outside = new
     if not changed:
       return outside

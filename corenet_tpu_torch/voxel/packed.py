@@ -23,9 +23,7 @@ from typing import Optional
 
 import torch
 
-# Rounds of the adaptive fill run in this process (the fixpoint reads one
-# flag from the device per round).
-round_count = 0
+from corenet_tpu_torch.utils import tracing
 
 
 def as_int32(word: int) -> int:
@@ -148,11 +146,11 @@ def fill_inside_packed(packed: torch.Tensor,
   """Interior fill of int32[..., H, W, NW] occupancy words.
 
   fill_rounds: None runs rounds until one changes nothing (the adaptive
-  fixpoint; each round reads one flag from the device, and adds one to
-  `round_count`); an int runs exactly that many rounds.
+  fixpoint; each round counts `fill.rounds` and reads one flag from the
+  device inside a `fill.sync` span, utils/tracing.py); an int runs
+  exactly that many rounds.
 
   Returns int32[..., H, W, NW]: bit = 1 where occupied or enclosed."""
-  global round_count
   if packed.dim() < 3:
     raise ValueError(f"packed must be [..., H, W, NW], got "
                      f"{tuple(packed.shape)}")
@@ -188,8 +186,10 @@ def fill_inside_packed(packed: torch.Tensor,
     return ~outside
   while True:
     new = round_fn(outside)
-    round_count += 1
-    changed = bool((new != outside).any())
+    flag = (new != outside).any()
+    with tracing.span("fill.sync"):
+      tracing.count("fill.rounds")
+      changed = bool(flag)
     outside = new
     if not changed:
       return ~outside

@@ -26,11 +26,17 @@ from corenet_tpu.voxel import raster_fast as jax_raster
 from corenet_tpu_torch.data import batching
 from corenet_tpu_torch.ops import blocked_raster
 from corenet_tpu_torch.train import gt
+from corenet_tpu_torch.utils import tracing
 from helpers import cube_mesh
 from test_torch_raster_fast import _sphere
 
 # Dyadic grid offsets: the view → voxel shift (offset − 0.5) is exact.
 OFFSETS = np.array([[0.5, 0.5, 0.5], [0.25, 0.625, 0.875]], np.float32)
+
+
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
 
 
 def _window(irm):
@@ -174,10 +180,10 @@ def test_cuda_input_without_a_card_raises_and_never_takes_the_plain_version(
     raise AssertionError("the plain version was taken for a CUDA input")
 
   monkeypatch.setattr(blocked_raster, "blocked_raster_reference", plain)
-  before = blocked_raster.launch_count
+  before = _count("blocked_raster.launches")
   with pytest.raises((RuntimeError, AssertionError),
                      match="CUDA|nvcc|cuda") as caught:
     blocked_raster.blocked_raster_or(triangles, slot, v2v, valid, meshes=2,
                                      m=m, irm=8, conservative=False)
   assert "plain version" not in str(caught.value)
-  assert blocked_raster.launch_count == before
+  assert _count("blocked_raster.launches") == before

@@ -32,6 +32,7 @@ from corenet_tpu_torch.ops import skip_gather as op
 from corenet_tpu_torch.train import gt
 from corenet_tpu_torch.train.state import create_train_state
 from corenet_tpu_torch.train.step import compute_v2s, make_train_step
+from corenet_tpu_torch.utils import tracing
 from corenet_tpu_torch.voxel import fill
 from corenet_tpu_torch.voxel.packed import pack_grid
 from corenet_tpu_torch.voxel.parity import parity_voxelize_batch
@@ -45,6 +46,24 @@ H7_SKIPS = [(10, 10, 96, 512), (18, 18, 48, 4096), (34, 34, 24, 32768),
 # The grid (D, H, W) that each case's voxels form, (z, y, x) order.
 GRIDS = {512: (8, 8, 8), 4096: (16, 16, 16), 32768: (32, 32, 32),
          262144: (64, 64, 64), 700: (7, 10, 10), 333: (9, 37, 1)}
+
+
+# The skip gather's forward and backward launch counters.
+K1_LAUNCHES = ("skip_gather.launches", "skip_gather.backward_launches")
+# The launch counters of a training step on GT voxelized in the step.
+STEP_LAUNCHES = ("blocked_raster.launches", "phased_gt.launches",
+                 "skip_gather.launches", "skip_gather.backward_launches",
+                 "fgbg_loss.launches")
+
+
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
+
+
+def _counts(*names: str) -> tuple:
+  totals = tracing.counters()
+  return tuple(totals[n] for n in names)
 
 
 @pytest.fixture
@@ -70,10 +89,10 @@ def test_skip_gather_kernel_equals_plain_version(device, h2, w2, c, n,
                                                  dtype):
   fmap, px, py = _inputs(h2 + n, 4, h2, w2, c, n, device)
   fmap = fmap.to(dtype)
-  before = op.launch_count
+  before = _count("skip_gather.launches")
   out = op.skip_gather(fmap, px, py, GRIDS[n])
   torch.cuda.synchronize()
-  assert op.launch_count == before + 1
+  assert _count("skip_gather.launches") == before + 1
   assert out.dtype == dtype and out.shape == (4, n, c)
   assert torch.equal(out, op.skip_gather_reference(fmap, px, py))
 
@@ -149,12 +168,12 @@ def test_skip_gather_backward_kernel_matches_plain_version(
   if layout == "step":
     dout = _step_layout(dout, grid)
     assert dout.stride() == ((16 + c) * n, 1, n)
-  before = op.backward_launch_count
+  before = _count("skip_gather.backward_launches")
   got = op.skip_gather_backward(dout, px, py, h2, w2,
                                 grid_resolution=grid if columns == "grid"
                                 else (1, 1, n))
   torch.cuda.synchronize()
-  assert op.backward_launch_count == before + 1
+  assert _count("skip_gather.backward_launches") == before + 1
   assert got.dtype == dtype and got.shape == (4, h2, w2, c)
   ref64, s = _scatter_bounds(dout, px, py, h2, w2)
   plain = op.skip_gather_backward_reference(dout, px, py, h2, w2)
@@ -177,12 +196,12 @@ def _bf16_ulp(x):
 def test_skip_gather_trains_through_both_kernels(device):
   fmap, px, py = _inputs(0, 2, 10, 10, 8, 64, device)
   fmap.requires_grad_(True)
-  fwd, bwd = op.launch_count, op.backward_launch_count
+  fwd, bwd = _counts(*K1_LAUNCHES)
   out = op.skip_gather(fmap, px, py, (1, 1, 64))
   dout = torch.randn_like(out)
   out.backward(dout)
   torch.cuda.synchronize()
-  assert (op.launch_count, op.backward_launch_count) == (fwd + 1, bwd + 1)
+  assert _counts(*K1_LAUNCHES) == (fwd + 1, bwd + 1)
   ref64, s = _scatter_bounds(dout, px, py, 10, 10)
   assert bool(((fmap.grad.double() - ref64).abs() <= 1e-5 * s + 1e-30).all())
 
@@ -196,10 +215,10 @@ def test_fgbg_sums_kernel_matches_plain_version(device, b, n, diff_dtype,
   gen = torch.Generator().manual_seed(n)
   diff = (torch.randn((b, n), generator=gen) * 3).to(device, diff_dtype)
   gt = (torch.rand((b, n), generator=gen) < 0.3).to(device, gt_dtype)
-  before = fgbg.launch_count
+  before = _count("fgbg_loss.launches")
   inter, union = fgbg.fgbg_sums(diff, gt)
   torch.cuda.synchronize()
-  assert fgbg.launch_count == before + 1
+  assert _count("fgbg_loss.launches") == before + 1
   ref_inter, ref_union = fgbg.fgbg_sums_reference(diff, gt)
   torch.testing.assert_close(inter, ref_inter, rtol=1e-6, atol=0)
   torch.testing.assert_close(union, ref_union, rtol=1e-6, atol=0)
@@ -241,11 +260,11 @@ def test_train_step_on_card_matches_cpu(device, monkeypatch):
     state = create_train_state(model, device=dev)
     step = make_train_step(state.model, state.optimizer, "FG_BG",
                            (32, 32, 32))
-    counts = (op.launch_count, op.backward_launch_count, fgbg.launch_count)
+    counts = _counts(*K1_LAUNCHES, "fgbg_loss.launches")
     state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
     losses.append(float(metrics["loss"]))
     assert state.global_step == 2
-  assert (op.launch_count, op.backward_launch_count, fgbg.launch_count) == (
+  assert _counts(*K1_LAUNCHES, "fgbg_loss.launches") == (
       counts[0] + 4, counts[1] + 4, counts[2] + 1)
   assert losses[1] == pytest.approx(losses[0], rel=1e-4)
 
@@ -265,9 +284,9 @@ def test_corenet_on_card_matches_cpu(device, monkeypatch):
   with torch.inference_mode():
     ref = model(image, v2s, offsets)
     model.to(device)
-    before = op.launch_count
+    before = _count("skip_gather.launches")
     got = model(image.to(device), v2s.to(device), offsets.to(device))
-    assert op.launch_count == before + 4
+    assert _count("skip_gather.launches") == before + 4
   torch.testing.assert_close(got.cpu(), ref, rtol=2e-3,
                              atol=2e-3 * float(ref.abs().max()))
 
@@ -290,13 +309,13 @@ def test_block_scatter_kernel_equals_plain_version(device, b, t, meshes, hw,
   pw[rng.random(pw.shape) < 0.7] = 0
   origins = torch.from_numpy(origins).to(device)
   pw = torch.from_numpy(pw.astype(np.int32)).to(device)
-  before = scatter.launch_count
+  before = _count("block_scatter.launches")
   got = scatter.block_scatter_or(origins, pw, meshes=meshes, h=hw, w=hw,
                                  nw=nw)
   again = scatter.block_scatter_or(origins, pw, meshes=meshes, h=hw, w=hw,
                                    nw=nw)
   torch.cuda.synchronize()
-  assert scatter.launch_count == before + 2
+  assert _count("block_scatter.launches") == before + 2
   want = scatter.block_scatter_or_reference(origins, pw, meshes=meshes,
                                             h=hw, w=hw, nw=nw)
   assert torch.equal(got, want) and torch.equal(again, got)
@@ -346,11 +365,11 @@ def test_blocked_raster_kernel_equals_plain_version(device, m, irm,
                                                     conservative):
   inputs = [x.to(device) for x in _raster_batch(m, irm, m + irm)]
   kw = dict(meshes=2, m=m, irm=irm, conservative=conservative)
-  before = raster.launch_count
+  before = _count("blocked_raster.launches")
   got = raster.blocked_raster_or(*inputs, **kw)
   again = raster.blocked_raster_or(*inputs, **kw)
   torch.cuda.synchronize()
-  assert raster.launch_count == before + 2
+  assert _count("blocked_raster.launches") == before + 2
   assert got.shape == (2, 2, m, m * (m // 32)) and got.dtype == torch.int32
   want = raster.blocked_raster_reference(*inputs, **kw)
   assert torch.equal(got, want) and torch.equal(again, got)
@@ -371,10 +390,10 @@ def test_phased_gt_kernel_equals_plain_version(device, s, shape):
   gen = torch.Generator().manual_seed(sum(shape) + s)
   grid = (torch.rand(shape, generator=gen) < 0.4).to(device)
   packed = pack_grid(grid)
-  before = phased.launch_count
+  before = _count("phased_gt.launches")
   got = phased.phased_gt(packed, s)
   torch.cuda.synchronize()
-  assert phased.launch_count == before + 1
+  assert _count("phased_gt.launches") == before + 1
   assert got.dtype == torch.uint8
   assert torch.equal(got, phased.phased_gt_reference(packed, s))
 
@@ -422,11 +441,11 @@ def test_packed_gt_on_card_equals_cpu(device):
           "grid_offset")
   want, _ = gt.voxelize_batch_packed_fgbg(*(batch[k] for k in keys),
                                           **kwargs)
-  before = raster.launch_count, scatter.launch_count
+  before = _counts("blocked_raster.launches", "block_scatter.launches")
   got, v2x = gt.voxelize_batch_packed_fgbg(
       *(batch[k].to(device) for k in keys), **kwargs)
-  assert (raster.launch_count, scatter.launch_count) == (before[0] + 1,
-                                                         before[1])
+  assert _counts("blocked_raster.launches", "block_scatter.launches") == (
+      before[0] + 1, before[1])
   assert torch.equal(got.cpu(), want)
   assert v2x.device == got.device
 
@@ -451,12 +470,10 @@ def test_phase_loss_train_step_on_card_matches_cpu(device, monkeypatch):
     state = create_train_state(model, device=dev)
     step = make_train_step(state.model, state.optimizer, "FG_BG",
                            (32, 32, 32), voxelization_kwargs=kwargs)
-    counts = (raster.launch_count, phased.launch_count, op.launch_count,
-              op.backward_launch_count, fgbg.launch_count)
+    counts = _counts(*STEP_LAUNCHES)
     state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
     losses.append(float(metrics["loss"]))
-  after = (raster.launch_count, phased.launch_count, op.launch_count,
-           op.backward_launch_count, fgbg.launch_count)
+  after = _counts(*STEP_LAUNCHES)
   assert tuple(a - c for a, c in zip(after, counts)) == (1, 1, 4, 4, 1)
   assert losses[1] == pytest.approx(losses[0], rel=1e-4)
 
@@ -539,11 +556,11 @@ def test_skip_gather_backward_packed_order_matches_plain_version(
   if dtype == torch.bfloat16:
     bound = bound + _bf16_ulp(ref64)
   for call in range(2):
-    before = op.backward_launch_count
+    before = _count("skip_gather.backward_launches")
     got = op.skip_gather_backward(given, px, py, h2, w2,
                                   grid_resolution=half)
     torch.cuda.synchronize()
-    assert op.backward_launch_count == before + 1
+    assert _count("skip_gather.backward_launches") == before + 1
     assert got.dtype == dtype and got.shape == (4, h2, w2, c)
     for out in (got, plain):
       err = (out.double() - ref64).abs()
@@ -580,13 +597,11 @@ def test_packed_phase_loss_step_on_card_matches_cpu(device, monkeypatch):
     state = create_train_state(model, device=dev)
     step = make_train_step(state.model, state.optimizer, "FG_BG",
                            (64, 64, 64), voxelization_kwargs=kwargs)
-    counts = (raster.launch_count, phased.launch_count, op.launch_count,
-              op.backward_launch_count, fgbg.launch_count)
+    counts = _counts(*STEP_LAUNCHES)
     del factors[:], backwards[:]
     state, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
     losses.append(float(metrics["loss"]))
-  after = (raster.launch_count, phased.launch_count, op.launch_count,
-           op.backward_launch_count, fgbg.launch_count)
+  after = _counts(*STEP_LAUNCHES)
   assert tuple(a - c for a, c in zip(after, counts)) == (1, 1, 4, 4, 1)
   assert factors == [4] and sorted(backwards) == [3, 3, 3, 4]
   assert losses[1] == pytest.approx(losses[0], rel=1e-4)
@@ -616,10 +631,10 @@ def test_general_gt_on_card_equals_cpu(device, res, kwargs):
   kwargs = dict(kwargs, resolution=(res,) * 3,
                 max_bbox_pixels=VOXELIZE_WINDOW_PIXELS)
   want, _ = gt.voxelize_batch(*(batch[k] for k in GT_KEYS), **kwargs)
-  before = raster.launch_count, scatter.launch_count
+  before = _counts("blocked_raster.launches", "block_scatter.launches")
   got, v2x = gt.voxelize_batch(*(batch[k].to(device) for k in GT_KEYS),
                                **kwargs)
-  assert (raster.launch_count, scatter.launch_count) == before
+  assert _counts("blocked_raster.launches", "block_scatter.launches") == before
   assert got.dtype == torch.int32 and v2x.device == got.device
   assert torch.equal(got.cpu(), want)
   assert set(want.unique().tolist()) == {0, 1, 2, 3}
@@ -633,9 +648,9 @@ def test_dense_fill_on_card_equals_cpu(device, shape):
   grid[0, 4:20, 4:20, 4:20] = 1
   grid[0, 6:18, 6:18, 6:18] = 0  # a cavity, which fills
   want = fill.fill_inside_voxels(grid)
-  before = fill.round_count
+  before = _count("fill.rounds")
   got = fill.fill_inside_voxels(grid.to(device))
-  rounds = fill.round_count - before
+  rounds = _count("fill.rounds") - before
   assert torch.equal(got.cpu(), want) and want[0, 12, 12, 12] == 1
   static = fill.fill_inside_voxels(grid.to(device), fill_rounds=rounds)
   assert torch.equal(static.cpu(), want)
@@ -790,12 +805,13 @@ def test_bf16_train_step_on_card_matches_plain_kernels(device, monkeypatch):
     state = create_train_state(model, device=device)
     step = make_train_step(state.model, state.optimizer, "FG_BG",
                            (128,) * 3, voxelization_kwargs=kwargs)
-    counts = op.backward_launch_count
+    counts = _count("skip_gather.backward_launches")
     with monkeypatch.context() as m:
       if plain:
         _plain_kernels(m)
       _, metrics = step(state, batch)
-    assert (op.backward_launch_count - counts) == (0 if plain else 4)
+    launched = _count("skip_gather.backward_launches") - counts
+    assert launched == (0 if plain else 4)
     # Conv biases that a BatchRenorm normalizes have a true gradient of 0:
     # both steps hold rounding dust there.
     results.append((float(metrics["loss"]), {
@@ -887,18 +903,16 @@ def test_nccl_group_of_one_steps_as_no_group_does(device, tmp_path,
 
   def one_step():
     model.load_state_dict(snapshot)
-    counts = (raster.launch_count, phased.launch_count, op.launch_count,
-              op.backward_launch_count, fgbg.launch_count)
-    collectives = mesh.collective_count
+    counts = _counts(*STEP_LAUNCHES)
+    collectives = _count("mesh.collectives")
     new_state, metrics = step(state, batch)
     torch.cuda.synchronize()
-    after = (raster.launch_count, phased.launch_count, op.launch_count,
-             op.backward_launch_count, fgbg.launch_count)
+    after = _counts(*STEP_LAUNCHES)
     return (float(metrics["loss"]), new_state.global_step,
             {n: p.grad.clone() for n, p in model.named_parameters()},
             {n: b.clone() for n, b in model.named_buffers()},
             tuple(a - c for a, c in zip(after, counts)),
-            mesh.collective_count - collectives)
+            _count("mesh.collectives") - collectives)
 
   def worst(run):
     return max(float((run[2][n] - g).norm() / g.norm())

@@ -27,6 +27,7 @@ import numpy.testing as tt
 import pytest
 import torch
 
+from corenet_tpu_torch.utils import tracing
 from test_torch_distributed import run_ranks
 
 torch.set_num_threads(2)
@@ -40,6 +41,11 @@ def _model(execution):
                  **EXECUTIONS[execution])
 
 
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
+
+
 def _digest(tensors):
   h = hashlib.sha256()
   for t in tensors:
@@ -50,16 +56,15 @@ def _digest(tensors):
 def _step(model, batch, vox_kwargs):
   """One step of the port on `batch` (numpy): the state, the metrics and
   the device collectives the step launched."""
-  from corenet_tpu_torch.parallel import mesh
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
   state = create_train_state(model, device="cpu")
   step = make_train_step(state.model, state.optimizer, "FG_BG", RES,
                          voxelization_kwargs=vox_kwargs)
-  count = mesh.collective_count
+  count = _count("mesh.collectives")
   state, metrics = step(state, {k: torch.from_numpy(v)
                                 for k, v in batch.items()})
-  return state, metrics, mesh.collective_count - count
+  return state, metrics, _count("mesh.collectives") - count
 
 
 def _run_executions(rank, scenes, state_dict, batch, vox_kwargs,

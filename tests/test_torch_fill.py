@@ -15,8 +15,14 @@ import torch
 
 from corenet_tpu.voxel import compose as jax_compose
 from corenet_tpu.voxel import fill as jax_fill
+from corenet_tpu_torch.utils import tracing
 from corenet_tpu_torch.voxel import compose, fill
 from test_torch_packed import _blobs_and_box, _tunnel
+
+
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
 
 
 def _serpentine():
@@ -44,16 +50,16 @@ GRIDS = {
 def test_fill_matches_jax_adaptive_and_static(case):
   grid = GRIDS[case]()
   want = np.asarray(jax_fill.fill_inside_voxels(jnp.asarray(grid)))
-  before = fill.round_count
+  before = _count("fill.rounds")
   adaptive = fill.fill_inside_voxels(torch.from_numpy(grid))
-  rounds = fill.round_count - before
+  rounds = _count("fill.rounds") - before
   assert rounds >= 2  # the last round is the one that changes nothing
   assert adaptive.dtype == torch.float32
   tt.assert_array_equal(adaptive.numpy(), want)
   # The static loop with as many rounds gives the fixpoint and counts none;
   # one round alone gives what JAX's one round gives.
   static = fill.fill_inside_voxels(torch.from_numpy(grid), fill_rounds=rounds)
-  assert fill.round_count == before + rounds
+  assert _count("fill.rounds") == before + rounds
   tt.assert_array_equal(static.numpy(), want)
   tt.assert_array_equal(
       fill.fill_inside_voxels(torch.from_numpy(grid), fill_rounds=1).numpy(),

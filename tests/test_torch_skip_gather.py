@@ -20,6 +20,7 @@ import torch
 from corenet_tpu.ops.skip_gather import skip_gather as jax_skip_gather
 from corenet_tpu_torch import kernels
 from corenet_tpu_torch.ops import skip_gather as op
+from corenet_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -27,6 +28,18 @@ torch.set_num_threads(2)
 H7_SKIP_SHAPES = [(10, 10, 96), (18, 18, 48), (34, 34, 24), (66, 66, 12)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# The skip gather's forward and backward launch counters.
+K1_LAUNCHES = ("skip_gather.launches", "skip_gather.backward_launches")
+
+
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
+
+
+def _counts(*names: str) -> tuple:
+  totals = tracing.counters()
+  return tuple(totals[n] for n in names)
 
 
 def _inputs(seed, b, h2, w2, c, n):
@@ -70,9 +83,9 @@ FLAT64 = (1, 1, 64)
 
 def test_wrapper_takes_plain_version_on_cpu_without_counting():
   fmap, px, py = (torch.from_numpy(a) for a in _inputs(3, 2, 10, 9, 5, 64))
-  before = op.launch_count
+  before = _count("skip_gather.launches")
   out = op.skip_gather(fmap, px, py, FLAT64)
-  assert op.launch_count == before
+  assert _count("skip_gather.launches") == before
   assert torch.equal(out, op.skip_gather_reference(fmap, px, py))
   # On the CPU the plain version is differentiable.
   fmap.requires_grad_(True)
@@ -177,9 +190,9 @@ def test_gradient_matches_pallas_backward(h2, w2, c, n, dtype):
 def test_backward_wrapper_takes_plain_version_on_cpu_without_counting():
   fmap, px, py, dout, _, _ = _backward_case(5, 2, 10, 9, 5, 64, "float32")
   px, py = torch.from_numpy(px), torch.from_numpy(py)
-  before = (op.launch_count, op.backward_launch_count)
+  before = _counts(*K1_LAUNCHES)
   got = op.skip_gather_backward(dout, px, py, 10, 9, FLAT64)
-  assert (op.launch_count, op.backward_launch_count) == before
+  assert _counts(*K1_LAUNCHES) == before
   assert torch.equal(got, op.skip_gather_backward_reference(dout, px, py, 10,
                                                             9))
   with pytest.raises(ValueError):

@@ -28,6 +28,7 @@ import numpy.testing as tt
 import pytest
 import torch
 
+from corenet_tpu_torch.utils import tracing
 from test_torch_distributed import run_ranks
 
 # name → (layer class, kwargs, packed). Inputs are (B, C, D, H, W) with
@@ -58,6 +59,11 @@ CASES = {
 }
 CIN, COUT, HW, BATCH = 3, 2, 4, 2
 WORLDS = (2, 4)
+
+
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
 
 
 def _layer(name, depth_sharded=False):
@@ -113,14 +119,14 @@ def layer_jobs(rank, world):
       x, dout = _inputs(name, world, slab)
       dim = _output_depth_dim(name)
       oslab = dout.shape[dim] // world
-      count = mesh.collective_count
+      count = _count("mesh.collectives")
       y, dx, grads = _run(
           _layer(name, depth_sharded=True),
           np.ascontiguousarray(x[:, :, rank * slab:(rank + 1) * slab]),
           np.ascontiguousarray(np.take(
               dout, range(rank * oslab, (rank + 1) * oslab), axis=dim)))
       out[name, slab] = {"y": y, "dx": dx, "grads": grads,
-                         "collectives": mesh.collective_count - count}
+                         "collectives": _count("mesh.collectives") - count}
   # Ends: rank r's slab holds the value r + 1, so its halos hold its
   # neighbours' values and zeros past the grid.
   x = torch.full((1, 1, 2, 1, 1), rank + 1.0, dtype=torch.float64)

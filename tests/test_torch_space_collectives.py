@@ -17,6 +17,7 @@ import numpy.testing as tt
 import pytest
 import torch
 
+from corenet_tpu_torch.utils import tracing
 from test_torch_distributed import run_ranks
 
 WORLDS = (2, 4)
@@ -24,6 +25,11 @@ SLAB = 3
 HALOS = [(lo, hi) for lo in (0, 1, SLAB) for hi in (0, 1, SLAB)]
 ROW = (2, 5)  # the all-to-all's row shape
 DTYPES = ("float32", "uint8", "int32")
+
+
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
 
 
 def _rows(world, rank, dtype):
@@ -46,17 +52,17 @@ def exchange_jobs(rank, world):
   mesh.create_mesh(space=world)
   out = {}
   for dtype in DTYPES:
-    count = mesh.collective_count
+    count = _count("mesh.collectives")
     got = mesh.space_all_to_all(torch.from_numpy(_rows(world, rank, dtype)))
-    out["a2a", dtype] = (got.numpy(), mesh.collective_count - count)
+    out["a2a", dtype] = (got.numpy(), _count("mesh.collectives") - count)
   x, douts = _slab(world, rank)
   for lo, hi in HALOS:
     xt = torch.from_numpy(x).requires_grad_(True)
-    count = mesh.collective_count
+    count = _count("mesh.collectives")
     y = mesh.halo_exchange(xt, 2, lo, hi)
     (y * torch.from_numpy(douts[lo, hi])).sum().backward()
     out["halo", lo, hi] = (y.detach().numpy(), xt.grad.numpy(),
-                           mesh.collective_count - count)
+                           _count("mesh.collectives") - count)
   try:
     mesh.space_all_to_all(torch.zeros(world + 1))
   except ValueError as e:

@@ -33,6 +33,7 @@ from corenet_tpu.ops.phased_gt import phased_gt as jax_phased_gt
 from corenet_tpu.parallel import kernel_sharding
 from corenet_tpu.parallel import mesh as jax_mesh
 from corenet_tpu.train import gt as jax_gt
+from corenet_tpu_torch.utils import tracing
 from test_torch_distributed import run_ranks
 
 IRM = 8
@@ -40,6 +41,13 @@ WINDOW = 24  # data/batching.py's VOXELIZE_WINDOW_PIXELS
 CASES = {"64³ space 2": (64, 2, 2), "32³ space 4": (32, 4, 4)}
 PHASES = (4, 2)
 LABELS_OF_SLOTS = (2, 1)  # the labeled grid: cube 2, sphere 1
+
+
+def _routes() -> dict:
+  """The labels' routes taken so far (train/gt.py::labels_slab)."""
+  counts = tracing.counters()
+  return {route: counts[f"gt.route.{route}"]
+          for route in ("space_shared", "replicated")}
 
 
 def _kwargs(m):
@@ -107,19 +115,19 @@ def gt_jobs(rank, world, m, b):
       def phased(*scenes, s=s):
         packed, v2x = gt.voxelize_batch_packed_fgbg(*scenes, **_kwargs(m))
         return phased_gt(packed, s), v2x
-      counts = dict(gt.route_counts)
+      counts = _routes()
       labels, _ = gt.labels_slab(phased, arrays, shard, shareable=True)
-      out[route, s] = (labels.numpy(), _delta(gt.route_counts, counts))
-    counts = dict(gt.route_counts)
+      out[route, s] = (labels.numpy(), _delta(_routes(), counts))
+    counts = _routes()
     grid, v2x = gt.labels_slab(grid_of, labeled, shard, shareable=True)
-    out[route, "grid"] = (grid.numpy(), _delta(gt.route_counts, counts))
+    out[route, "grid"] = (grid.numpy(), _delta(_routes(), counts))
     out["v2x", route] = v2x.numpy()
     gt.shares_over_space = shares
   # The batch less one scene does not divide by the space count.
-  counts = dict(gt.route_counts)
+  counts = _routes()
   grid, _ = gt.labels_slab(grid_of, [a[:b - 1] for a in labeled], shard,
                            shareable=True)
-  out["indivisible"] = (grid.numpy(), _delta(gt.route_counts, counts))
+  out["indivisible"] = (grid.numpy(), _delta(_routes(), counts))
   return out
 
 

@@ -28,6 +28,7 @@ import os
 import pytest
 import torch
 
+from corenet_tpu_torch.utils import tracing
 from test_torch_distributed import run_ranks
 from test_torch_distributed_pipeline import (
     _free_port, _recording, _summary, _train_dict)
@@ -37,6 +38,13 @@ torch.set_num_threads(2)
 
 SCENES = 4
 EVAL_STEP = 4
+
+
+def _routes() -> dict:
+  """The labels' routes taken so far (train/gt.py::labels_slab)."""
+  counts = tracing.counters()
+  return {route: counts[f"gt.route.{route}"]
+          for route in ("space_shared", "replicated")}
 
 
 def _config_dict(root, manifest, meshes_dir):
@@ -58,18 +66,18 @@ def train_jobs(rank, world, config_dict, max_steps):
   worker's)."""
   from corenet_tpu_torch import config as cfg
   from corenet_tpu_torch.parallel import mesh
-  from corenet_tpu_torch.train import checkpoint, gt, pipeline
+  from corenet_tpu_torch.train import checkpoint, pipeline
   record = {"batches": [], "saves": []}
   _recording(pipeline.TrainPipeline, checkpoint.CheckpointManager, record)
   full = cfg.config_from_dict(cfg.TrainPipeline, config_dict)
   p = pipeline.TrainPipeline(full.train, full.output_path, device="cpu",
                              mesh=mesh.create_mesh(space=2),
                              compute_dtype="float32")
-  before = dict(gt.route_counts)
+  before = _routes()
   p.run(max_steps=max_steps)
   return dict(_summary(p, record), depth_shard=p.model.depth_shard,
               shard_stage=p.model.decoder.shard_stage,
-              routes={k: v - before[k] for k, v in gt.route_counts.items()})
+              routes={k: v - before[k] for k, v in _routes().items()})
 
 
 def cli_jobs(rank, world, config_path, max_steps):

@@ -37,12 +37,25 @@ import numpy.testing as tt
 import pytest
 import torch
 
+from corenet_tpu_torch.utils import tracing
 from test_torch_distributed import run_ranks
 
 torch.set_num_threads(2)
 
 RES = (32, 32, 32)
 SEMANTIC_CLASSES = 3
+
+
+def _count(name: str) -> int:
+  """A counter's total (corenet_tpu_torch/utils/tracing.py)."""
+  return tracing.counters()[name]
+
+
+def _routes() -> dict:
+  """The labels' routes taken so far (train/gt.py::labels_slab)."""
+  counts = tracing.counters()
+  return {route: counts[f"gt.route.{route}"]
+          for route in ("space_shared", "replicated")}
 
 
 def _digest(tensors):
@@ -71,8 +84,6 @@ def step_case(case, scenes, depth_shard=None, full=True):
   batch the global step, the device collectives, digests of the gradients
   and parameters after Adam, and (`full`) its gradients and new
   statistics."""
-  from corenet_tpu_torch.parallel import mesh
-  from corenet_tpu_torch.train import gt
   from corenet_tpu_torch.train.state import create_train_state
   from corenet_tpu_torch.train.step import make_train_step
   out = {"losses": []}
@@ -83,8 +94,8 @@ def step_case(case, scenes, depth_shard=None, full=True):
     step = make_train_step(state.model, state.optimizer, case["task"],
                            case["res"],
                            voxelization_kwargs=case["vox_kwargs"])
-    count = mesh.collective_count
-    routes = dict(gt.route_counts)
+    count = _count("mesh.collectives")
+    routes = _routes()
     state, metrics = step(state, {k: torch.from_numpy(v[scenes])
                                   for k, v in batch.items()})
     out["losses"].append(float(metrics["loss"]))
@@ -94,8 +105,8 @@ def step_case(case, scenes, depth_shard=None, full=True):
     if i:
       continue
     out.update(global_step=state.global_step,
-               collectives=mesh.collective_count - count,
-               routes=_delta(gt.route_counts, routes),
+               collectives=_count("mesh.collectives") - count,
+               routes=_delta(_routes(), routes),
                grads_digest=_digest(p.grad for p in model.parameters()),
                params_digest=_digest(model.parameters()),
                buffers_digest=_digest(model.buffers()),

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from corenet_tpu_torch.utils import tracing
 from test_torch_distributed import run_ranks
 from test_torch_saved_states import remove_saved_states
 from test_torch_space_step import RES, step_case
@@ -31,6 +32,13 @@ from test_torch_space_step import RES, step_case
 torch.set_num_threads(2)
 
 ROUTES = ("shared", "replicated")
+
+
+def _routes() -> dict:
+  """The labels' routes taken so far (train/gt.py::labels_slab)."""
+  counts = tracing.counters()
+  return {route: counts[f"gt.route.{route}"]
+          for route in ("space_shared", "replicated")}
 
 
 def space_jobs(rank, world, cases, space):
@@ -137,16 +145,16 @@ def pipeline_jobs(rank, world, configs):
   the GT routes it took."""
   from corenet_tpu_torch import config as cfg
   from corenet_tpu_torch.parallel import mesh
-  from corenet_tpu_torch.train import gt, pipeline
+  from corenet_tpu_torch.train import pipeline
   layout = mesh.create_mesh(space=2)
   out = []
   for config_dict in configs:
     full = cfg.config_from_dict(cfg.TrainPipeline, config_dict)
     p = pipeline.TrainPipeline(full.train, full.output_path, device="cpu",
                                mesh=layout, compute_dtype="float32")
-    before = dict(gt.route_counts)
+    before = _routes()
     p.run(max_steps=1)
-    out.append({k: v - before[k] for k, v in gt.route_counts.items()
+    out.append({k: v - before[k] for k, v in _routes().items()
                 if v != before[k]})
   return out
 

@@ -283,16 +283,20 @@ def test_resume_continues_at_the_saved_step_in_jax_order(trained):
     return real_step(state, batch)
 
   resumed.train_step = spy
-  # The profiler window opens at the first iteration; the run ends inside
-  # it, and the trace is written all the same.
+  # The profiler window opens after the first iteration; the run ends
+  # inside it, and the trace is written all the same, with the second
+  # step's spans as named ranges.
   trace_dir = os.path.join(full.output_path, "profile")
-  resumed.run(max_steps=MAX_STEPS + BATCH, profile_dir=trace_dir,
+  resumed.run(max_steps=MAX_STEPS + 2 * BATCH, profile_dir=trace_dir,
               profile_start=0, profile_steps=5)
-  assert resumed.state.global_step == MAX_STEPS + BATCH
+  assert resumed.state.global_step == MAX_STEPS + 2 * BATCH
   with open(os.path.join(trace_dir, "trace.json")) as f:
-    assert "traceEvents" in json.load(f)
+    events = json.load(f)["traceEvents"]
+  names = {e.get("name") for e in events}
+  assert {"train.step", "train.loader_wait", "train.gt", "train.forward",
+          "train.backward", "train.optimizer"} <= names
   first, _ = next(iter(ref._epoch_loader(MAX_STEPS)))
-  assert len(seen) == 1
+  assert len(seen) == 2
   np.testing.assert_array_equal(seen[0], first.image)
 
 
