@@ -29,11 +29,14 @@ Phases; the run fails at the first that fails:
   3. serving  h7: 128³ output, 2 classes, batch 4, 256² images, random
               weights from a seed, through super_resolution_from_model
               (its default: the packed decoder, since slice 6).
-              Checks the PMF (shape, finite, sums to 1), that each forward
-              launched the skip kernel once per skip (4), and that the
-              PMF equals that of the same forward with the plain skips.
-              Times 15 forwards one by one (closed loop, one batch in
-              flight) and profiles one more (device busy time, the kernels
+              Checks the PMF (shape, finite, sums to 1), that the first
+              forward (eager) launched the skip kernel once per skip (4),
+              that the next captured the product's CUDA graph and the
+              rest replayed it (serve.graph.captures, .replays), and that
+              the PMF equals that of the same forward with the plain
+              skips (each from a fresh product's eager call). Times 15
+              forwards one by one (closed loop, one batch in flight) and
+              profiles one more replay (device busy time, the kernels
               with the most device time).
   4. y1       a y1-shaped model (32³ native → 128³ output: m = 4, 64
               decode passes folded into one batch, the encoder once): the
@@ -485,12 +488,15 @@ def check_pmf(torch, pmf, shape):
 
 
 def serve(torch, op, label, infer, args, shape):
-  """The serving path's run: one forward whose skip-kernel launches are
-  counted (zeroed just before, read just after) and whose PMF is checked,
-  then SERVE_RUNS forwards timed one by one on the host clock, each ended
-  by a synchronize, then one profiled forward. Returns the launches of the
-  first forward and the figures: median (min, max) ms per forward,
-  scenes/s, peak memory, busy time, idle share, convolution shares."""
+  """The serving path's run on a fresh product: one forward, eager, whose
+  skip-kernel launches are counted (zeroed just before, read just after)
+  and whose PMF is checked, then SERVE_RUNS forwards timed one by one on
+  the host clock, each ended by a synchronize: the first captures the
+  product's CUDA graph and the others replay it, which launch no kernel
+  from Python and are counted by serve.graph.replays. Then one profiled
+  replay. Returns the launches of the first forward and the figures:
+  median (min, max) ms per forward, scenes/s, peak memory, busy time,
+  idle share, convolution shares."""
   torch.cuda.synchronize()
   zero_counts(op)
   start = time.perf_counter()
@@ -504,28 +510,35 @@ def serve(torch, op, label, infer, args, shape):
   sum_err = check_pmf(torch, pmf, shape)
   del pmf
   torch.cuda.reset_peak_memory_stats()
-  zero_counts(op)
+  graphs = graph_counts()
   times = []
   for _ in range(SERVE_RUNS):
     start = time.perf_counter()
     infer(*args)
     torch.cuda.synchronize()
     times.append((time.perf_counter() - start) * 1e3)
-  if launch_counts(op)[0] != 4 * SERVE_RUNS:
-    raise AssertionError(f"{launch_counts(op)[0]} launches in {SERVE_RUNS} "
-                         "forwards")
+  ways = graph_counts(graphs)
+  if ways != (0, 1, SERVE_RUNS - 1):
+    raise AssertionError(f"{SERVE_RUNS} forwards after the first ran "
+                         f"(eager, captured, replayed) {ways} times, expected "
+                         f"(0, 1, {SERVE_RUNS - 1})")
   mem = torch.cuda.max_memory_allocated()
   ms = statistics.median(times)
+  graphs = graph_counts()
   profile = device_profile(torch, lambda: infer(*args))
-  log_profile(label, profile, ms)
+  if graph_counts(graphs) != (0, 0, 1):
+    raise AssertionError(f"the profiled forward was not a replay: "
+                         f"{graph_counts(graphs)}")
+  log_profile(label, profile, ms, "replayed forward")
   row = {"median_ms": ms, "min_ms": min(times), "max_ms": max(times),
          "scenes_per_s": BATCH * 1e3 / ms, "peak_gib": mem / 2 ** 30,
          "busy_ms": profile["busy_ms"] if profile else None,
          "idle_share": 1 - profile["busy_ms"] / ms if profile else None,
          "conv_shares": profile["conv_shares"] if profile else None}
   log(f"{label} serve: PMF {list(shape)}, |sum - 1| <= {sum_err:.2e}, "
-      f"skip_gather launches {launches} per forward; first forward "
-      f"{first_s:.3f} s, then over {SERVE_RUNS} forwards median "
+      f"skip_gather launches {launches} per eager forward; first forward "
+      f"{first_s:.3f} s, then over {SERVE_RUNS} forwards (one capture, "
+      f"{SERVE_RUNS - 1} CUDA-graph replays) median "
       f"{ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}) per batch "
       f"of {BATCH} = {BATCH * 1e3 / ms:.2f} scenes/s, peak memory "
       f"{mem / 2**30:.2f} GiB; share of the kernels' device time: " +
@@ -534,16 +547,18 @@ def serve(torch, op, label, infer, args, shape):
   return launches, row
 
 
-def check_plain_skips(torch, op, fgbg, label, infer, args):
+def check_plain_skips(torch, op, fgbg, label, make_infer, args):
   """The path's PMF with the kernel and with the plain skips:
-  bit-identical, since the gather is a copy. cuDNN is held to
-  deterministic algorithms for both so that no convolution sums in a
+  bit-identical, since the gather is a copy. Each comes from the eager
+  first call of a product that `make_infer` builds, the plain one inside
+  the swap: a product's graph replays whatever it captured. cuDNN is held
+  to deterministic algorithms for both so that no convolution sums in a
   run-dependent order."""
   torch.backends.cudnn.deterministic = True
   try:
-    kernel = infer(*args)
+    kernel = make_infer()(*args)
     with plain_versions(op, fgbg):
-      plain = infer(*args)
+      plain = make_infer()(*args)
   finally:
     torch.backends.cudnn.deterministic = False
   if not torch.equal(kernel, plain):
@@ -747,6 +762,21 @@ def counter(name):
   """The total of one of the program's counters (utils/tracing.py)."""
   from corenet_tpu_torch.utils import tracing
   return tracing.counters().get(name, 0)
+
+
+def graph_counts(since=(0, 0, 0)):
+  """The serving products' calls run eagerly, captured and replayed
+  (serve.graph.*, eval/super_resolution.py), less `since`."""
+  return tuple(counter(f"serve.graph.{way}") - before for way, before in
+               zip(("eager", "captures", "replays"), since))
+
+
+def python_forwards(since):
+  """Serving forwards that ran through Python since `graph_counts()` read
+  `since`: an eager call runs one; a capture two, its warm-up and the
+  captured one; a replay none. Each launches the skip gather 4 times."""
+  eager, captures, _ = graph_counts(since)
+  return eager + 2 * captures
 
 
 def route_counts():
@@ -1722,16 +1752,22 @@ def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
     probe = EvalProbe(torch, pipeline, results_mod)
     torch.cuda.synchronize()
     zero_counts(*mods)
+    graphs = graph_counts()
     phase_a_calls = []
     with caught_calls(raster_fast, "_phase_a", phase_a_calls):
       mean_iou, run_s = probe.run()
     launches = launch_counts(*mods)
-    if launches != (4 * batches, 0, 0, batches, 0) or phase_a_calls:
+    forwards = python_forwards(graphs)
+    if (launches != (4 * forwards, 0, 0, batches, 0) or phase_a_calls
+        or sum(graph_counts(graphs)) != batches):
       raise AssertionError(f"h7 eval launched (skip_gather, its backward, "
                            f"fgbg_sums, blocked_raster_or, phased_gt) "
-                           f"{launches} times in {batches} batches, expected "
-                           f"4 and 1 per batch, and called phase A's tensor "
-                           f"code {len(phase_a_calls)} times, expected 0")
+                           f"{launches} times in {batches} batches "
+                           f"({graph_counts(graphs)} eager, captured, "
+                           f"replayed), expected 4 per forward run through "
+                           f"Python ({forwards}) and 1 per batch, and called "
+                           f"phase A's tensor code {len(phase_a_calls)} "
+                           f"times, expected 0")
     confusion = probe.results.confusion.copy()
     if confusion.sum() != EVAL_SCENES * voxels:
       raise AssertionError(f"the confusion matrix sums to {confusion.sum()}, "
@@ -1752,8 +1788,10 @@ def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
         f"batches of {BATCH} (the last with {EVAL_SCENES % BATCH or BATCH} "
         f"valid), mean IoU {mean_iou:.6f}, confusion matrix "
         f"{confusion.tolist()} sums to {EVAL_SCENES} · {OUTPUT_RES[0]}³; launches "
-        f"(skip_gather, blocked_raster_or) ({launches[0]}, {launches[3]}) = "
-        f"(4, 1) per batch, phase A's tensor code not called; "
+        f"(skip_gather, blocked_raster_or) ({launches[0]}, {launches[3]}): "
+        f"4 per forward run through Python ({forwards}: eager, captured "
+        f"and replayed {graph_counts(graphs)}) and 1 per batch, phase A's "
+        f"tensor code not called; "
         f"voxel_metrics.csv parses back to the table; "
         f"run {run_s:.3f} s")
 
@@ -1818,7 +1856,11 @@ def eval_h7(torch, mods, CoreNet, CoreNetConfig, DecoderConfig, dev):
     torch.backends.cudnn.deterministic = True
     try:
       for plain in (False, True):
-        run = EvalProbe(torch, pipeline, results_mod)
+        # A fresh product: one that has captured replays its graph,
+        # whatever the swap.
+        run = EvalProbe(torch, pipeline_for("FG_BG", (
+            super_resolution_from_model(h7, h7_state, OUTPUT_RES,
+                                        device=dev))), results_mod)
         counts = launch_counts(*mods)
         with plain_versions(op, raster) if plain else (
             contextlib.nullcontext()):
@@ -2207,6 +2249,7 @@ def serve_cli(torch, mods, CoreNet, config, image, camera, v2x, dev):
           timed_calls(renderer, ["render_mesh", "render_voxel_grid"], spans):
         torch.cuda.synchronize()
         zero_counts(*mods)
+        graphs = graph_counts()
         start = time.perf_counter()
         cli_iou = eval_cli.main([f"--checkpoint_path={path}",
                                  f"--output_path={cli_out}"])["full_eval"]
@@ -2215,11 +2258,13 @@ def serve_cli(torch, mods, CoreNet, config, image, camera, v2x, dev):
         launches = launch_counts(*mods)
     finally:
       torch.backends.cudnn.deterministic = False
-    if launches != (4 * batches, 0, 0, batches, 0):
+    forwards = python_forwards(graphs)
+    if launches != (4 * forwards, 0, 0, batches, 0):
       raise AssertionError(f"the eval CLI launched (skip_gather, its "
                            f"backward, fgbg_sums, blocked_raster_or, "
                            f"phased_gt) {launches} times in {batches} "
-                           f"batches, expected 4 and 1 per batch")
+                           f"batches, expected 4 per forward run through "
+                           f"Python ({forwards}) and 1 per batch")
     if cli_iou != ref_iou:
       raise AssertionError(f"the eval CLI's mean IoU {cli_iou} is not "
                            f"run_eval's {ref_iou}")
@@ -2654,11 +2699,13 @@ def train_cli(torch, mods, dev):
 
   def timed_eval(self, pipeline, eval_config, step):
     counts = launch_counts(*mods)
+    graphs = graph_counts()
     start = time.perf_counter()
     miou = real_run_single(self, pipeline, eval_config, step)
     figures["eval_s"].append(time.perf_counter() - start)
     figures["eval_launches"] = tuple(
         a - b for a, b in zip(launch_counts(*mods), counts))
+    figures["eval_forwards"] = python_forwards(graphs)
     figures["training_after_eval"] = pipeline.model.training
     figures["eval_miou"] = miou
     return miou
@@ -2724,8 +2771,11 @@ def train_cli(torch, mods, dev):
         or set(figures["step_launches"]) != {(4, 4, 1, 1, 1)}):
       raise AssertionError(f"launches per step {figures['step_launches']}")
     batches = -(-EVAL_SCENES // BATCH)
-    if figures["eval_launches"] != (4 * batches, 0, 0, batches, 0):
-      raise AssertionError(f"eval launches {figures['eval_launches']}")
+    if figures["eval_launches"] != (4 * figures["eval_forwards"], 0, 0,
+                                    batches, 0):
+      raise AssertionError(f"eval launches {figures['eval_launches']}, "
+                           f"{figures['eval_forwards']} forwards run "
+                           f"through Python")
   figures.update(first_call_s=first_s, second_call_s=second_s,
                  losses=losses)
   log(f"train-cli: h7 in bf16 through cli.train.main, 12 examples then a "
@@ -3159,6 +3209,7 @@ def packed_clis(torch, mods, CoreNet, config, dev):
     ious = {}
     for flag in ("--packed_inference", "--nopacked_inference"):
       zero_counts(*mods)
+      graphs = graph_counts()
       start = time.perf_counter()
       ious[flag] = eval_cli.main([f"--checkpoint_path={cpt}",
                                   f"--output_path={root}/{flag[2:]}",
@@ -3166,8 +3217,10 @@ def packed_clis(torch, mods, CoreNet, config, dev):
       torch.cuda.synchronize()
       out[f"eval{flag[1:]}_s"] = time.perf_counter() - start
       launches = launch_counts(*mods)
-      if launches != (4 * batches, 0, 0, batches, 0):
-        raise AssertionError(f"the eval CLI with {flag} launched {launches}")
+      if launches != (4 * python_forwards(graphs), 0, 0, batches, 0):
+        raise AssertionError(f"the eval CLI with {flag} launched {launches} "
+                             f"({graph_counts(graphs)} forwards eager, "
+                             f"captured, replayed)")
     diff = abs(ious["--packed_inference"] - ious["--nopacked_inference"])
     if not diff <= PACKED_IOU_TOL:
       raise AssertionError(f"the eval CLI's mean IoU packed "
@@ -3176,8 +3229,8 @@ def packed_clis(torch, mods, CoreNet, config, dev):
     log(f"packed eval CLI: mean IoU {ious['--packed_inference']:.6f} with "
         f"--packed_inference, {ious['--nopacked_inference']:.6f} with "
         f"--nopacked_inference (difference {diff:.2e}, tolerance "
-        f"{PACKED_IOU_TOL}); K1 {4 * batches} and K3 {batches} launches in "
-        f"{batches} batches each")
+        f"{PACKED_IOU_TOL}); K1 4 per forward run through Python and K3 "
+        f"{batches} launches in {batches} batches each")
     out.update(eval_iou=ious, eval_iou_diff=diff)
   return out
 
@@ -5320,7 +5373,8 @@ def main() -> int:
   infer = super_resolution_from_model(h7, h7_state, OUTPUT_RES, device="cuda")
   main_launches, h7_serve = serve(torch, op, "h7", infer, args,
                                (BATCH,) + OUTPUT_RES + (2,))
-  check_plain_skips(torch, op, fgbg, "h7", infer, args)
+  check_plain_skips(torch, op, fgbg, "h7", lambda: super_resolution_from_model(
+      h7, h7_state, OUTPUT_RES, device="cuda"), args)
   del h7, infer
   torch.cuda.empty_cache()
 
@@ -5330,7 +5384,8 @@ def main() -> int:
   infer = super_resolution_from_model(y1, y1_state, Y1_NATIVE, device="cuda")
   _, y1_serve = serve(torch, op, "y1", infer, args,
                      (BATCH,) + OUTPUT_RES + (2,))
-  check_plain_skips(torch, op, fgbg, "y1", infer, args)
+  check_plain_skips(torch, op, fgbg, "y1", lambda: super_resolution_from_model(
+      y1, y1_state, Y1_NATIVE, device="cuda"), args)
   pmf = infer(*args)
 
   sequential = super_resolution_from_model(y1, y1_state, Y1_NATIVE,

@@ -10,11 +10,16 @@ image is encoded once and only the decoder runs per offset. With
 decode instead of a loop of m³ decodes. With `packed_execution` the
 decoder runs packed (models/packing.py) where the model's configuration
 allows it.
+
+On a CUDA device a product replays one CUDA graph per input signature
+(`GraphPlan`): a request's launches become a few copies and one graph
+launch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Tuple
+from typing import (Callable, Dict, Hashable, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -37,7 +42,8 @@ class SuperResolutionInference:
   float32[B, D, H, W, C] on `device`. Inputs may be numpy arrays or
   tensors; they are moved to `device`. Each call is a `serve.request`
   span (utils/tracing.py) whose id is the call's number, with the spans
-  serve.to_device, serve.encode, serve.decode and serve.assemble."""
+  serve.to_device, serve.encode and serve.decode (or, replaying a CUDA
+  graph, serve.replay) and serve.assemble."""
 
   def __init__(self, inference_fn: MultiOffsetInferenceFn,
                resolution: Tuple[int, int, int],
@@ -140,6 +146,109 @@ class _MultiOffset(nn.Module):
           for offset in grid_offsets])
 
 
+# Input signatures that one product keeps a CUDA graph for.
+MAX_GRAPHS = 4
+
+EAGER, CAPTURE, REPLAY = "eager", "capture", "replay"
+
+
+class GraphPlan:
+  """Which way each call of one product goes, by its signature.
+
+  The first call of a signature runs eagerly: it fills the packed
+  decoder's cached device indices and lets cuDNN choose its algorithms.
+  The second captures a CUDA graph and replays it; later ones replay it.
+  While a profiler runs, a signature without a graph runs eagerly and its
+  capture waits for a later call, so that a trace never holds a capture.
+  At most `limit` signatures get a graph; calls of others run eagerly.
+  """
+
+  def __init__(self, limit: int = MAX_GRAPHS):
+    self.limit = limit
+    self.seen = set()
+    self.graphs: Dict[Hashable, _Captured] = {}
+
+  def way(self, signature: Hashable, profiling: bool) -> str:
+    if signature in self.graphs:
+      return REPLAY
+    if signature not in self.seen:
+      self.seen.add(signature)
+      return EAGER
+    if profiling or len(self.graphs) >= self.limit:
+      return EAGER
+    return CAPTURE
+
+
+def signature(inputs: Tuple[torch.Tensor, ...]) -> Hashable:
+  """What a graph is captured for: each input's shape, dtype and device
+  (the offsets' shape carries the output resolution's m³ passes)."""
+  return tuple((tuple(t.shape), t.dtype, t.device) for t in inputs)
+
+
+class _Captured(NamedTuple):
+  graph: "torch.cuda.CUDAGraph"
+  inputs: Tuple[torch.Tensor, ...]  # the graph's static input buffers
+  output: torch.Tensor              # its static output
+
+
+class GraphedCall:
+  """`fn` (MultiOffsetInferenceFn on CUDA tensors) through one CUDA graph
+  per signature, as `GraphPlan` decides. The graphs read `fn`'s weights
+  where they lie, so an in-place change of them is seen by the next
+  replay. They share one memory pool, which goes with this object. Counts
+  serve.graph.eager, serve.graph.captures or serve.graph.replays for each
+  call; a replay is the span serve.replay."""
+
+  def __init__(self, fn: MultiOffsetInferenceFn, device: torch.device):
+    self.fn, self.device = fn, device
+    self.plan = GraphPlan()
+    self.pool = None
+
+  @torch.inference_mode()
+  def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+    key = signature(inputs)
+    way = self.plan.way(key, tracing.profiling())
+    if way == EAGER:
+      tracing.count("serve.graph.eager")
+      return self.fn(*inputs)
+    with torch.cuda.device(self.device):
+      if way == CAPTURE:
+        tracing.count("serve.graph.captures")
+        captured = self.plan.graphs[key] = self._capture(inputs)
+        captured.graph.replay()
+      else:
+        tracing.count("serve.graph.replays")
+        captured = self.plan.graphs[key]
+        with tracing.span("serve.replay"):
+          for static, x in zip(captured.inputs, inputs):
+            static.copy_(x)
+          captured.graph.replay()
+    # The next replay overwrites the static output: the caller gets its
+    # own copy. With several passes the assemble's interleave copies; a
+    # single pass it only views, so that one is copied here.
+    out = captured.output
+    return out.clone() if out.shape[0] == 1 else out
+
+  def _capture(self, inputs: Tuple[torch.Tensor, ...]) -> _Captured:
+    """Captures `fn` on static copies of `inputs`, after one warm-up call
+    on the capture's side stream (torch.cuda.graphs' recipe)."""
+    static = tuple(x.clone() for x in inputs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+      self.fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    if self.pool is None:
+      self.pool = torch.cuda.graph_pool_handle()
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: a loader thread's CUDA calls (a training run's
+    # recurrent evals) do not break the capture.
+    with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                          capture_error_mode="thread_local"):
+      output = self.fn(*static)
+    return _Captured(graph, static, output)
+
+
 def _twin(model: CoreNet, packed_execution: bool) -> CoreNet:
   """An eval-mode CoreNet of `model`'s architecture on the meta device
   with fine float32 logits, packed where asked and eligible."""
@@ -185,6 +294,10 @@ def super_resolution_inference_factory(
   packed training model is evaluated fine unless this asks. The packed
   logits agree with the fine ones within the convolutions' rounding (the
   JAX package's envelope is 2e-3 · max|logit|).
+
+  On a CUDA device each product replays a CUDA graph per input signature
+  from a signature's second call on (`GraphedCall`, `GraphPlan`); the
+  PMFs are the eager ones bit for bit.
   """
   device = checked_device(device)
   if batch_offsets is None:
@@ -206,6 +319,8 @@ def super_resolution_inference_factory(
       return torch.func.functional_call(
           twin, tensors, (image, camera, v2x, grid_offsets), strict=True)
 
+    if device.type == "cuda":
+      multi = GraphedCall(multi, device)
     return SuperResolutionInference(multi, resolution, device)
 
   return make

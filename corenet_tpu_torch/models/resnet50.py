@@ -17,6 +17,7 @@ tensors (no copy), so they compare directly with the JAX package's.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -152,5 +153,14 @@ def preprocess_image_caffe(image: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"expected uint8[B, H, W, 3], got {image.dtype} "
                      f"{tuple(image.shape)}")
   image = image.float().flip(-1)  # RGB → BGR
-  return image + torch.tensor([103.939, 116.779, 123.68],
-                              dtype=torch.float32, device=image.device)
+  return image + _caffe_mean(image.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _caffe_mean(device: torch.device) -> torch.Tensor:
+  """The BGR constants on `device`, copied from the host once: a copy in
+  every call would synchronize the host, and a CUDA graph cannot capture
+  one. Made outside inference mode, as autograd may use it later."""
+  with torch.inference_mode(False):
+    return torch.tensor([103.939, 116.779, 123.68], dtype=torch.float32,
+                        device=device)

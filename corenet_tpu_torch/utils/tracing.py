@@ -31,10 +31,13 @@ The spans:
     included) and train.optimizer;
   loader.collate, on the data loader's producer thread;
   serve.request (id: the request's number), with serve.to_device,
-    serve.encode, serve.decode and serve.assemble.
+    serve.encode and serve.decode (or serve.replay, a CUDA graph's
+    replay in their place) and serve.assemble.
 The counters: <op>.launches for each hand-written kernel of ops/,
 skip_gather.backward_launches, fill.rounds, mesh.collectives,
-gt.route.space_shared and gt.route.replicated.
+gt.route.space_shared and gt.route.replicated; serve.graph.eager,
+serve.graph.captures and serve.graph.replays, one of them for each call
+of a serving product on a CUDA device (counted in serve.request).
 """
 
 from __future__ import annotations
@@ -102,9 +105,14 @@ def _stack() -> List[Span]:
   return stack
 
 
+def profiling() -> bool:
+  """Whether a torch.profiler records: the switch of every span."""
+  return bool(_profiler._is_profiler_enabled)
+
+
 def span(name: str, id=None):
   """A context manager over the range `name` (see the module docstring)."""
-  if not _profiler._is_profiler_enabled or len(_spans) >= MAX_SPANS:
+  if not profiling() or len(_spans) >= MAX_SPANS:
     return _OFF
   return Span(name, id)
 
@@ -114,7 +122,7 @@ def count(name: str, n: int = 1) -> None:
   thread's innermost open span."""
   with _lock:
     _totals[name] = _totals.get(name, 0) + n
-  if _profiler._is_profiler_enabled:
+  if profiling():
     stack = getattr(_local, "stack", None)
     if stack:
       counts = stack[-1].counts

@@ -937,3 +937,121 @@ def test_nccl_group_of_one_steps_as_no_group_does(device, tmp_path,
     assert worst(grouped) == 0
   else:
     assert worst(grouped) <= max(1e-6, 10 * floor), (worst(grouped), floor)
+
+
+# The serving product's graph counters (eval/super_resolution.py).
+GRAPH_COUNTERS = ("serve.graph.eager", "serve.graph.captures",
+                  "serve.graph.replays")
+
+
+def _served(device, weights=None):
+  """A seeded 32³ model's serving product on the card (packed decoder, as
+  h7's) and its weights on the card."""
+  from corenet_tpu_torch.eval.super_resolution import (
+      super_resolution_from_model)
+  model = CoreNet(CoreNetConfig(DecoderConfig((32, 32, 32), 2)))
+  model.reset_parameters(torch.Generator().manual_seed(4))
+  if weights is None:
+    weights = {k: v.to(device) for k, v in model.state_dict().items()}
+  return super_resolution_from_model(model, weights, (32,) * 3,
+                                     device=device), weights
+
+
+def _serve_args(seed, batch):
+  rng = np.random.default_rng(seed)
+  image = torch.from_numpy(rng.integers(0, 256, (batch, 64, 64, 3)).astype(
+      np.uint8))
+  camera = torch.diag(torch.tensor([1.8, 1.8, 1.8, 1.0])).repeat(batch, 1, 1)
+  camera[:, :3, 3] = torch.from_numpy(
+      rng.uniform(-1.0, -0.8, (batch, 3)).astype(np.float32))
+  v2x = torch.diag(torch.tensor([32.0, 32, 32, 1])).repeat(batch, 1, 1)
+  return image, camera, v2x, torch.full((batch, 3), 0.5)
+
+
+# Output resolution and batch: one pass (h7's m = 1), and 64 passes of a
+# 32³ model folded into one decode (y1's m = 4).
+SERVE_SHAPES = [(32, 2), (128, 1)]
+
+
+@pytest.mark.parametrize("output,batch", SERVE_SHAPES)
+def test_serving_graph_replays_the_eager_pmf_bit_for_bit(device, monkeypatch,
+                                                         output, batch):
+  """A signature's eager first call, its capture and a replay give the
+  same PMF bit for bit under deterministic cuDNN."""
+  monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+  infer, _ = _served(device)
+  args = _serve_args(1, batch) + ((output,) * 3,)
+  before = _counts(*GRAPH_COUNTERS)
+  pmfs = [infer(*args) for _ in range(3)]
+  assert tuple(a - b for a, b in zip(_counts(*GRAPH_COUNTERS), before)) == (
+      1, 1, 1)
+  assert pmfs[0].shape == (batch,) + (output,) * 3 + (2,)
+  assert torch.equal(pmfs[0], pmfs[1]) and torch.equal(pmfs[0], pmfs[2])
+
+
+@pytest.mark.parametrize("output,batch", SERVE_SHAPES)
+def test_a_served_pmf_outlives_later_replays(device, output, batch):
+  """A PMF handed out by a replay is the caller's: later replays of other
+  inputs leave it as it was."""
+  infer, _ = _served(device)
+  out3 = (output,) * 3
+  first = _serve_args(1, batch)
+  for _ in range(2):
+    infer(*first, out3)
+  pmf = infer(*first, out3)
+  kept = pmf.clone()
+  other = infer(*_serve_args(2, batch), out3)
+  infer(*_serve_args(3, batch), out3)
+  assert torch.equal(pmf, kept) and not torch.equal(pmf, other)
+
+
+def test_a_replay_reads_weights_changed_in_place(device, monkeypatch):
+  """The graph reads the weights where they lie, as the eager forward
+  does: after an in-place change the replay gives a fresh product's
+  eager PMF."""
+  monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+  infer, weights = _served(device)
+  args = _serve_args(1, 2) + ((32,) * 3,)
+  for _ in range(3):
+    before = infer(*args)
+  with torch.no_grad():
+    for name, value in weights.items():
+      if name.startswith("decoder.") and value.is_floating_point():
+        value.mul_(1.01)
+  replayed = infer(*args)
+  assert _counts("serve.graph.replays")
+  fresh, _ = _served(device, weights)
+  assert not torch.equal(replayed, before)
+  assert torch.equal(replayed, fresh(*args))
+
+
+def test_serving_replays_under_the_profiler_record_kernels_and_spans(device):
+  """Replays traced with CUDA activity: the gather's and cuDNN's kernels
+  appear by name, and each request holds one serve.replay span in place
+  of serve.encode and serve.decode and counts one replay."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  infer, _ = _served(device)
+  args = _serve_args(1, 2) + ((32,) * 3,)
+  infer(*args)
+  infer(*args)
+  torch.cuda.synchronize()
+  tracing.clear()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(2):
+      infer(*args)
+    torch.cuda.synchronize()
+  names = [ev.name() for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == DeviceType.CUDA]
+  assert any("gather_rows" in n for n in names)
+  assert any(k in n for n in names for k in ("fprop", "implicit_gemm",
+                                              "xmma_", "conv"))
+  recorded = tracing.spans()
+  requests = [s for s in recorded if s.name == "serve.request"]
+  assert len(requests) == 2
+  assert all(s.counts == {"serve.graph.replays": 1} for s in requests)
+  replays = [s for s in recorded if s.name == "serve.replay"]
+  assert [s.parent for s in replays] == requests
+  assert not [s for s in recorded
+              if s.name in ("serve.encode", "serve.decode")]
