@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from corenet_tpu_torch.ops import fgbg_loss
 from corenet_tpu_torch.parallel import mesh
+from corenet_tpu_torch.utils import tracing
 
 
 def _check(gt_volume, logits, weights):
@@ -118,9 +119,13 @@ def xent(gt_volume: torch.Tensor, logits: torch.Tensor,
 
 
 def xent_times_iou_agnostic(gt_volume, logits, weights=None):
-  """(1 + iou_agnostic)(1 + xent)."""
-  return ((1.0 + iou_agnostic(gt_volume, logits, weights)) *
-          (1.0 + xent(gt_volume, logits, weights)))
+  """(1 + iou_agnostic)(1 + xent), each factor in its span (loss.iou,
+  loss.xent; utils/tracing.py)."""
+  with tracing.span("loss.iou"):
+    iou = iou_agnostic(gt_volume, logits, weights)
+  with tracing.span("loss.xent"):
+    nll = xent(gt_volume, logits, weights)
+  return (1.0 + iou) * (1.0 + nll)
 
 
 def xent_times_iou_fgbg(gt_volume, logits, weights=None):

@@ -45,6 +45,7 @@ from corenet_tpu_torch.parallel import mesh
 from corenet_tpu_torch.utils import tracing
 from corenet_tpu_torch.voxel import raster_fast
 from corenet_tpu_torch.voxel.fill import fill_inside_voxels
+from corenet_tpu_torch.voxel.packed import unpack_grid
 from corenet_tpu_torch.voxel.voxelize import (
     get_sub_grid_centers, voxelize_triangles)
 
@@ -234,14 +235,16 @@ def _blocked_settings(grid_offsets, num_mesh_slots, m, **kwargs):
 def _blocked_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
                    grid_offsets, m, label_dtype, **kwargs):
   """Blocked rasterizer → label_dtype[B, D, H, W]: each voxel holds the
-  largest label of the meshes that occupy or enclose it."""
+  largest label of the meshes that occupy or enclose it. The merge of the
+  slots' grids into labels is the span gt.labels."""
   view2voxel, settings = _blocked_settings(grid_offsets, mesh_labels.shape[1],
                                            m, **kwargs)
-  grids = raster_fast.voxelize_blocked(triangles, tri_mesh_slot, view2voxel,
-                                       tri_valid, dtype=label_dtype,
-                                       **settings)  # [B, M, D, H, W]
-  labeled = grids * mesh_labels.to(label_dtype)[:, :, None, None, None]
-  return labeled.amax(dim=1)
+  packed = raster_fast.voxelize_blocked_packed(
+      triangles, tri_mesh_slot, view2voxel, tri_valid, **settings)
+  with tracing.span("gt.labels"):
+    grids = unpack_grid(packed, dtype=label_dtype)  # [B, M, D, H, W]
+    labeled = grids * mesh_labels.to(label_dtype)[:, :, None, None, None]
+    return labeled.amax(dim=1)
 
 
 def voxelize_batch_packed_fgbg(triangles, tri_mesh_slot, tri_valid,
@@ -249,10 +252,11 @@ def voxelize_batch_packed_fgbg(triangles, tri_mesh_slot, tri_valid,
   """Binary (FG_BG) ground truth as bit-packed grids: (int32[B, H, W, NW],
   bit = 1 where a mesh with label > 0 occupies or encloses the voxel;
   v2x float32[B, 4, 4]). The unpacked grid is never made. The caller
-  checks packed_fgbg_eligible first."""
+  checks packed_fgbg_eligible first. Counts B·M as gt.mesh_slots."""
   d, h, w = kwargs["resolution"]
   m = float(max(d, h, w))
   b, num_mesh_slots = mesh_labels.shape
+  tracing.count("gt.mesh_slots", b * num_mesh_slots)
   view2voxel, settings = _blocked_settings(grid_offsets, num_mesh_slots, m,
                                            **kwargs)
   packed = raster_fast.voxelize_blocked_packed(
@@ -284,11 +288,13 @@ def voxelize_batch(triangles, tri_mesh_slot, tri_valid, mesh_labels,
   distinct label values, when known) ≤ 256 attests that labels fit a byte,
   and the grid is uint8; without it the grid is int32 (same values). Every
   other configuration, and num_label_values > 256, takes the general
-  rasterizer and returns int32."""
+  rasterizer and returns int32. Counts the B·M mesh slots it voxelizes
+  as gt.mesh_slots (utils/tracing.py)."""
   kwargs = dict(kwargs)
   num_label_values = kwargs.pop("num_label_values", None)
   d, h, w = kwargs["resolution"]
   m = float(max(d, h, w))
+  tracing.count("gt.mesh_slots", mesh_labels.numel())
   if blocked_grid_eligible(num_label_values=num_label_values, **kwargs):
     label_dtype = (torch.uint8 if num_label_values is not None
                    else torch.int32)

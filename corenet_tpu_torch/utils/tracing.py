@@ -26,16 +26,20 @@ to that one span, not to its parents).
 The spans:
   train.step (id: the global step before it), on the training thread,
     with its children train.loader_wait, train.to_device, train.gt (with
-    one fill.sync for each adaptive fill round's flag read),
-    train.forward, train.loss, train.backward (the gradient all-reduce
-    included) and train.optimizer;
+    one fill.sync for each adaptive fill round's flag read, and
+    gt.labels around the merge of a labeled grid's mesh slots: unpack,
+    multiply by each slot's label, max over the slots), train.forward,
+    train.loss (with loss.iou and loss.xent, the two factors of the
+    SEMANTIC loss), train.backward (the gradient all-reduce included)
+    and train.optimizer;
   loader.collate, on the data loader's producer thread;
   serve.request (id: the request's number), with serve.to_device,
     serve.encode and serve.decode (or serve.replay, a CUDA graph's
     replay in their place) and serve.assemble.
 The counters: <op>.launches for each hand-written kernel of ops/,
 skip_gather.backward_launches, fill.rounds, mesh.collectives,
-gt.route.space_shared and gt.route.replicated; serve.graph.eager,
+gt.route.space_shared and gt.route.replicated, gt.mesh_slots (the B·M
+mesh slots that a device GT call voxelizes); serve.graph.eager,
 serve.graph.captures and serve.graph.replays, one of them for each call
 of a serving product on a CUDA device (counted in serve.request).
 """

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from corenet_tpu_torch.ops.blocked_raster import blocked_raster_or
 from corenet_tpu_torch.voxel.packed import (
-    fill_inside_packed, shift_along, shift_right, unpack_grid)
+    fill_inside_packed, shift_along, shift_right)
 from corenet_tpu_torch.voxel.voxelize import (
     _PLANE_AXES, _dominant_axis, _edge)
 
@@ -300,12 +300,3 @@ def voxelize_blocked_packed(
   if fill_inside:
     packed = fill_inside_packed(packed, fill_rounds=fill_rounds)
   return packed
-
-
-def voxelize_blocked(triangles, tri_mesh_slot, view2voxel, tri_valid,
-                     dtype=torch.float32, **kwargs) -> torch.Tensor:
-  """Like voxelize_blocked_packed, but returns dtype[B, M, D, H, W] of
-  0/1."""
-  packed = voxelize_blocked_packed(triangles, tri_mesh_slot, view2voxel,
-                                   tri_valid, **kwargs)
-  return unpack_grid(packed, dtype=dtype)
